@@ -1,0 +1,36 @@
+"""rescan_tpu_torch — the PyTorch + CUDA port of rescan_tpu.
+
+The JAX package ``rescan_tpu`` stays the reference. This package ports
+the rescan timestep (pose_proposal -> segment_transfer, driven by
+``pipeline.driver``) with the same CLIs and files. Its one device kernel,
+the gated nearest-neighbour search, is hand-written CUDA for Hopper
+(``ops/csrc/gnn.cu``) with a plain PyTorch version beside it
+(``ops/gnn.py``). Host code that never imports JAX — ``config``, ``io``,
+``core`` (with the native C++ library), ``ops.{energy,planes,voxel}``,
+``utils``, ``eval`` and the seg2rsdb/create_eval_files/fuse_models
+stages — is imported from ``rescan_tpu``, not copied. This package never
+imports JAX.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+# Pose transforms and the ICP normal equations are f32 matmuls; TF32
+# would move ICP poses by ~1e-3 against the reference.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; by default cuda when available, else
+    cpu. Asking for cuda without a card raises — the stages never fall
+    back to the CPU."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available")
+    return dev

@@ -1,0 +1,241 @@
+"""Label transfer from placed objects and label smoothing — the port of
+rescan_tpu/ops/labels.py.
+
+Label transfer mirrors rspf_arrangement_to_labels
+(lib/rs/rs_pointcloud_filters.cpp:780-879): placements sorted dynamic-
+first (by (is_static << 10 | class_idx)); each placement claims the scene
+points whose inverse-transformed position has its nearest object point
+within the radius AND whose normal is within 70 degrees of that point's
+(|dot|); the closest claim wins through a running min-distance; the
+static pass runs at 1.5x radius without resetting the distances.
+
+Smoothing runs the shared native engines over the reference's unary +
+weighted-Potts energy: ``abswap`` (the default, the reference's gco
+alpha-beta swap move space) or ``native`` (mean-field + masked ICM).
+The JAX package's ``jax`` mean-field engine is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rescan_tpu import config
+from rescan_tpu.core import native
+from rescan_tpu.io.rsdb import Placement, Rsdb
+
+from . import gnn, search
+
+
+def _static_sort_key(db: Rsdb, p: Placement) -> int:
+    """rsfp__static_plcmnt_cmp (rs_pointcloud_filters.cpp:724-736):
+    ascending (is_static << 10 | class_idx), stable."""
+    return (int(db.is_object_static(p.object_idx)) << 10) | \
+        db.objects[p.object_idx].class_idx
+
+
+def arrangement_to_labels(db: Rsdb, scene, arrangement: Sequence[Placement],
+                          radius: float = config.LABEL_TRANSFER_RADIUS,
+                          prioritize_static: bool = False,
+                          device="cpu") -> None:
+    """Write class/instance ids into scene level 1 from the arrangement.
+
+    Per placement, one K2 query (ops/gnn.py ``nearest_gated`` with |dot|
+    and cos_gate -1, so every in-radius neighbour passes) of the
+    bbox-filtered scene points against the object's slab, built once per
+    object on ``device``. The 70-degree gate is applied after, to the
+    nearest neighbour's |dot| — nearest-THEN-gate, as the reference does
+    (:758-771). All placements launch before the first result is read;
+    the merge reads them in placement order."""
+    dev = torch.device(device)
+    lvl = config.LABEL_LVL
+    pts = scene.pos(lvl)
+    nrm = scene.nrm(lvl)
+    n = len(pts)
+    labels = np.zeros(n, np.int32)
+    min_d2 = np.full(n, 1e9, np.float32)
+
+    order = sorted(range(len(arrangement)),
+                   key=lambda i: _static_sort_key(db, arrangement[i]))
+    sorted_arr = [arrangement[i] for i in order]
+    first_static = 0
+    for i, p in enumerate(sorted_arr):
+        if db.is_object_static(p.object_idx):
+            first_static = i
+            break
+    # quirk preserved: if no placement is static, first_static stays 0 and
+    # the "static" pass (1.5x radius) covers the whole arrangement
+    # (rs_pointcloud_filters.cpp:830-848)
+
+    cos_gate = np.cos(np.deg2rad(config.LABEL_TRANSFER_MAX_ANGLE_DEG))
+    index_cache = {}
+
+    def obj_index(obj_idx: int) -> gnn.SortedSlab:
+        e = index_cache.get(obj_idx)
+        if e is None:
+            obj = db.objects[obj_idx].cloud
+            e = search.build_index(obj.pos(lvl), normals=obj.nrm(lvl),
+                                   device=dev)
+            index_cache[obj_idx] = e
+        return e
+
+    r2 = (radius if prioritize_static
+          else config.LABEL_TRANSFER_STATIC_RADIUS_SCALE * radius)
+
+    def submit(start: int, end: int):
+        pend = []
+        for i in range(start, end):
+            p = sorted_arr[i]
+            r = radius if i < first_static else r2
+            obj = db.objects[p.object_idx].cloud
+            inv = np.linalg.inv(p.pose.astype(np.float64)).astype(np.float32)
+            q = pts @ inv[:3, :3].T + inv[:3, 3]
+            # normal "matrix" is the TRANSPOSE of the pose
+            # (rs_pointcloud_filters.cpp:751): R^T = R^-1 for rigid poses
+            qn = nrm @ p.pose[:3, :3].astype(np.float32)
+            # bbox prefilter: only scene points near the object can match
+            bmin = obj.pos(lvl).min(axis=0) - r
+            bmax = obj.pos(lvl).max(axis=0) + r
+            cand = np.where(((q >= bmin) & (q <= bmax)).all(axis=1))[0]
+            if len(cand) == 0:
+                continue
+            res = search.nearest_gated(
+                obj_index(p.object_idx),
+                torch.from_numpy(np.ascontiguousarray(q[cand])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(qn[cand])).to(dev),
+                r, -1.0, use_abs_dot=True)
+            pend.append((i, cand, res))
+        return pend
+
+    def merge(pend):
+        for i, cand, (idx, d2, dot) in pend:
+            idx = idx.cpu().numpy()
+            nd2 = d2.cpu().numpy()
+            dot = dot.cpu().numpy()
+            hit = idx >= 0
+            ci, nd2, dot = cand[hit], nd2[hit], dot[hit]
+            better = nd2 < min_d2[ci]
+            ci, nd2, dot = ci[better], nd2[better], dot[better]
+            ok = dot > cos_gate  # angle < 70 deg
+            ci, nd2 = ci[ok], nd2[ok]
+            min_d2[ci] = nd2
+            labels[ci] = i + 1
+
+    merge(submit(0, first_static))
+    if prioritize_static:
+        min_d2[:] = 1e9
+    merge(submit(first_static, len(sorted_arr)))
+
+    unlabelled_idx = db.class_idx("unlabelled")
+    cls = np.full(n, unlabelled_idx, np.int32)
+    ins = np.full(n, config.MAX_INSTANCES, np.int32)
+    for i, p in enumerate(sorted_arr):
+        sel = labels == (i + 1)
+        cls[sel] = db.objects[p.object_idx].class_idx
+        ins[sel] = p.uidx
+    scene.levels[lvl]["class_ids"] = cls
+    scene.levels[lvl]["instance_ids"] = ins
+
+
+def build_smoothing_graph(scene) -> Tuple[np.ndarray, np.ndarray]:
+    """8-NN 0.05-radius edge graph with the reference's edge weights
+    (rspf_compute_neighborhood, rs_pointcloud_filters.cpp:674-722), on
+    the native host grid. Returns (edges (E,2) int32 deduped unordered
+    pairs, weights (E,))."""
+    lvl = config.LABEL_LVL
+    pts = scene.pos(lvl)
+    nrm = scene.nrm(lvl)
+    r = config.SMOOTH_RADIUS
+    grid = native.HostGrid(pts, r)
+    idx, d2, cnt = grid.radius_search(pts, r, config.SMOOTH_MAX_NN)
+    return native.smooth_graph(idx, d2, nrm, np.float32(r * r),
+                               config.SMOOTH_DIST_EXP,
+                               config.SMOOTH_ANGLE_EXP)
+
+
+def smooth_labels(db: Rsdb, scene, n_meanfield: int = 30,
+                  n_icm: int = 8, engine: str | None = None) -> None:
+    """Smoothing of level-1 instance labels over the reference's unary +
+    weighted-Potts energy (rspf_smooth_labels,
+    rs_pointcloud_filters.cpp:882-989), with the native engines:
+    ``abswap`` (default; env RESCAN_SMOOTH_ENGINE overrides) or
+    ``native``."""
+    engine = engine or os.environ.get("RESCAN_SMOOTH_ENGINE", "abswap")
+    if engine not in ("abswap", "native"):
+        raise ValueError(f"smoothing engine {engine!r} is not ported; "
+                         "use 'abswap' or 'native'")
+
+    lvl = config.LABEL_LVL
+    L = scene.levels[lvl]
+    n = len(L["class_ids"])
+    inst = L["instance_ids"]
+    cls = L["class_ids"]
+    unlabelled_idx = db.class_idx("unlabelled")
+
+    valid_inst = inst[inst < config.MAX_INSTANCES]
+    max_uidx = int(valid_inst.max()) if len(valid_inst) else -1
+    n_labels = max_uidx + 5
+    if n_labels < 2:
+        return
+    # the label axis padded to a multiple of 8, as the reference package
+    # does (it changes the energy's label set, so it is kept)
+    n_labels = ((n_labels + 7) // 8) * 8
+
+    labels0 = np.where(cls == unlabelled_idx, 0, inst + 1).astype(np.int32)
+    labels0 = np.clip(labels0, 0, n_labels - 1)
+    # label -> (class, instance) maps built like the reference (last point
+    # of each label wins, :908-917)
+    label_to_class = np.full(n_labels, unlabelled_idx, np.int32)
+    label_to_inst = np.full(n_labels, config.MAX_INSTANCES, np.int32)
+    label_to_class[labels0] = cls
+    label_to_inst[labels0] = inst
+
+    # unary: 0 for own label, else 30/15/1 by the point's label class
+    is_static = np.array([db.is_class_static(int(c))
+                          for c in label_to_class])
+    cost_of_point = np.where(is_static[labels0],
+                             config.SMOOTH_COST_STATIC,
+                             config.SMOOTH_COST_DYNAMIC)
+    cost_of_point = np.where(labels0 == 0, config.SMOOTH_COST_UNLABELLED,
+                             cost_of_point).astype(np.float32)
+
+    edges, w = build_smoothing_graph(scene)
+    # gco receives int(w * edge_cost) as the neighbor weight, multiplied by
+    # the Potts table value edge_cost (:942-966)
+    pair_w = (np.floor(w * config.SMOOTH_EDGE_COST).astype(np.float32)
+              * config.SMOOTH_EDGE_COST)
+
+    if engine == "abswap":
+        off, nbr, w2 = native.csr_from_edges(edges[:, 0], edges[:, 1],
+                                             pair_w, n)
+        labels = native.abswap(
+            cost_of_point[:, None]
+            * (1.0 - np.eye(n_labels, dtype=np.float32)[labels0]),
+            off, nbr, w2, labels0, n_cycles=2)
+    else:
+        # ICM masks drawn over the pow2-padded point count, so the rng
+        # stream is the reference package's
+        n_pad = max(1 << int(np.ceil(np.log2(max(n, 1)))), 1024)
+        rng = np.random.default_rng(config.SA_SEED)
+        icm_masks = (rng.random((n_icm, n_pad)) < 0.5)
+        # nodes renumbered along a Morton curve for cache-resident CSR
+        # neighbour rows
+        perm = gnn.morton_order(scene.pos(lvl), cell=0.1)  # new -> old
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        lab_s = labels0[perm]
+        onehot = np.zeros((n, n_labels), np.float32)
+        onehot[np.arange(n), lab_s] = 1.0
+        U = cost_of_point[perm, None] * (1.0 - onehot)
+        off, nbr, w2 = native.csr_from_edges(
+            inv[edges[:, 0]], inv[edges[:, 1]], pair_w, n)
+        labels_s = native.meanfield_icm(U, off, nbr, w2,
+                                        n_meanfield, 0.25, onehot,
+                                        icm_masks[:, :n][:, perm])
+        labels = np.empty(n, np.int32)
+        labels[perm] = labels_s
+    L["class_ids"] = label_to_class[labels].astype(np.int32)
+    L["instance_ids"] = label_to_inst[labels].astype(np.int32)
