@@ -17,8 +17,19 @@ result lines:
              the JAX package's committed outputs
              (tests/data/torch_port_small_ref.npz);
 5. slice   — the port's driver over bench.py's 2-scan scene (seg2rsdb,
-             pose_proposal, segment_transfer) with the kernel launch
-             counts reset just before and read just after.
+             pose_proposal, segment_transfer) on the single device
+             [cuda:0], with the kernel launch counts reset just before
+             and read just after;
+6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
+             slots on cuda:0, or over the visible cards when there are 2
+             or more. (a) the small sequence held to the committed JAX
+             outputs; (b) the bench sequence held to phase 5's outputs;
+             (c) a dp x sp ICP fixture on the bench level-2 slab (2 pairs,
+             sp = 2) held to the single-device loop; (d) the torch
+             smoothing engine on the bench level-1 graph held to the
+             native engine, both timed. K1/K2 launch counts per check;
+             plain calls must be 0. A mesh of slots on one card checks
+             correctness; it is no scaling figure.
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and the result line {"ok": true, "device": {...}}.
@@ -27,6 +38,7 @@ and the result line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -235,7 +247,7 @@ def phase_kernels(cuda, bench_root) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _run_driver(root: str, class_file: str, cuda, profiles=None) -> None:
+def _run_driver(root: str, class_file: str, devices, profiles=None) -> None:
     from rescan_tpu_torch.pipeline import driver
     from rescan_tpu_torch.sequences import SEQ_NAME
     cwd = os.getcwd()
@@ -244,26 +256,45 @@ def _run_driver(root: str, class_file: str, cuda, profiles=None) -> None:
     try:
         with contextlib.redirect_stdout(log):
             driver.run_sequence(SEQ_NAME, class_file, profiles=profiles,
-                                device=cuda)
+                                devices=devices)
     finally:
         os.chdir(cwd)
 
 
-def phase_parity(cuda, work: str) -> None:
+def _counted(phase: str, what: str, fn):
+    """fn() with the kernel launch counts reset just before and read just
+    after; fails unless both kernels launched and no plain version ran."""
+    from rescan_tpu_torch.ops import gnn
+    gnn.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches, plain = dict(gnn.LAUNCHES), dict(gnn.PLAIN_CALLS)
+    if min(launches.values()) == 0 or any(plain.values()):
+        raise SystemExit(f"[{phase}] FAIL {what}: kernel launches "
+                         f"{launches}, plain calls {plain}")
+    return out, launches, plain
+
+
+def _small_parity(phase: str, work: str, devices) -> str:
+    """The small sequence through the driver on ``devices``, held to the
+    committed JAX outputs; returns a summary."""
     from rescan_tpu_torch import sequences
-    root = os.path.join(work, "small")
+    root = os.path.join(work, f"small_{len(devices)}")
     class_file = sequences.write_small_sequence(root)
     t0 = time.perf_counter()
-    _run_driver(root, class_file, cuda)
+    _, launches, plain = _counted(
+        phase, "small sequence",
+        lambda: _run_driver(root, class_file, devices))
     got = sequences.read_outputs(root)
     ref = dict(np.load(REF_NPZ))
     bad = sequences.compare_outputs(ref, got)
     if bad:
-        raise SystemExit(f"[parity] FAIL vs {os.path.relpath(REF_NPZ, HERE)}"
-                         f": {bad}")
+        raise SystemExit(f"[{phase}] FAIL vs "
+                         f"{os.path.relpath(REF_NPZ, HERE)}: {bad}")
     starts = np.concatenate([[0], np.cumsum(ref["prop_counts"])[:-1]])
     top = [i for i, n in zip(starts, ref["prop_counts"]) if n]
-    say("parity", f"small sequence in {time.perf_counter() - t0:.1f}s: "
+    return (
+        f"small sequence in {time.perf_counter() - t0:.1f}s: "
         f"proposal counts {got['prop_counts'].tolist()} identical; top-1 "
         f"pose max diff "
         f"{np.abs(ref['prop_poses'][top] - got['prop_poses'][top]).max():.3g}"
@@ -273,23 +304,22 @@ def phase_parity(cuda, work: str) -> None:
         f"{np.abs(ref['arr_poses'] - got['arr_poses']).max():.3g}, label "
         f"agreement class "
         f"{(ref['class_ids'] == got['class_ids']).mean():.6f} instance "
-        f"{(ref['instance_ids'] == got['instance_ids']).mean():.6f}")
+        f"{(ref['instance_ids'] == got['instance_ids']).mean():.6f}; "
+        f"kernel launches {launches}, plain calls {plain}")
+
+
+def phase_parity(cuda, work: str) -> None:
+    say("parity", _small_parity("parity", work, [cuda]))
 
 
 def phase_slice(cuda, root: str, class_file: str) -> dict:
     from rescan_tpu_torch import sequences
-    from rescan_tpu_torch.ops import gnn
     profiles = []
-    gnn.reset_counts()
     t0 = time.perf_counter()
-    _run_driver(root, class_file, cuda, profiles=profiles)
-    torch.cuda.synchronize()
+    _, launches, plain = _counted(
+        "slice", "bench sequence",
+        lambda: _run_driver(root, class_file, [cuda], profiles=profiles))
     wall = time.perf_counter() - t0
-    launches = dict(gnn.LAUNCHES)
-    plain = dict(gnn.PLAIN_CALLS)
-    if min(launches.values()) == 0 or any(plain.values()):
-        raise SystemExit(f"[slice] FAIL: kernel launches {launches}, plain "
-                         f"calls {plain}")
     out = sequences.read_outputs(root)
     counts = out["prop_counts"]
     from rescan_tpu.core import database
@@ -314,7 +344,216 @@ def phase_slice(cuda, root: str, class_file: str) -> dict:
                           p["pose_proposal"].items()},
         "segment_transfer": {k: round(v, 4) for k, v in
                              p["segment_transfer"].items()}}}), flush=True)
-    return launches
+    return launches, out
+
+
+def mesh_slots(n: int = 4) -> list:
+    """n shard slots: all on cuda:0 with one card, else round-robin over
+    the first n visible cards."""
+    count = min(torch.cuda.device_count(), n)
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _mesh_small(work: str, slots) -> None:
+    from rescan_tpu_torch.parallel import mesh as pmesh
+    shapes = []
+    real = pmesh.icp_refine_indexed_dpsp
+
+    def spy(mesh2d, *a, **k):
+        shapes.append(f"dp={mesh2d.dp} x sp={mesh2d.sp}")
+        return real(mesh2d, *a, **k)
+
+    pmesh.icp_refine_indexed_dpsp = spy
+    try:
+        summary = _small_parity("mesh", work, slots)
+    finally:
+        pmesh.icp_refine_indexed_dpsp = real
+    say("mesh", f"(a) {summary}; ICP meshes (pose_proposal, then "
+        f"refine-to-scene) {shapes}")
+
+
+def _mesh_bench(work: str, bench_root: str, class_file: str, slots,
+                single: dict) -> None:
+    """The bench sequence on the mesh, held to phase 5's outputs."""
+    from rescan_tpu_torch import sequences
+    root = os.path.join(work, "bench_mesh")
+    shutil.copytree(os.path.join(bench_root, sequences.SEQ_NAME, "gt_"
+                                 "segmentation"),
+                    os.path.join(root, sequences.SEQ_NAME,
+                                 "gt_segmentation"))
+    profiles = []
+    t0 = time.perf_counter()
+    _, launches, plain = _counted(
+        "mesh", "(b) bench sequence",
+        lambda: _run_driver(root, class_file, slots, profiles=profiles))
+    wall = time.perf_counter() - t0
+    got = sequences.read_outputs(root)
+    bad = []
+    if not np.array_equal(got["prop_counts"], single["prop_counts"]):
+        raise SystemExit(f"[mesh] FAIL (b): proposal counts "
+                         f"{got['prop_counts'].tolist()} vs "
+                         f"{single['prop_counts'].tolist()}")
+    starts = np.concatenate([[0], np.cumsum(single["prop_counts"])[:-1]])
+    top = [i for i, n in zip(starts, single["prop_counts"]) if n]
+    d_top = float(np.abs(got["prop_poses"][top]
+                         - single["prop_poses"][top]).max(initial=0))
+    d_all = float(np.abs(got["prop_poses"] - single["prop_poses"])
+                  .max(initial=0))
+    d_score = float(np.abs(got["prop_scores"] - single["prop_scores"])
+                    .max(initial=0))
+    if d_top > sequences.TOP1_POSE_TOL:
+        bad.append(f"top-1 pose diff {d_top:.3g}")
+    for k in ("arr_object_idx", "arr_uidx"):
+        if not np.array_equal(got[k], single[k]):
+            bad.append(f"arrangement {k} {got[k].tolist()} vs "
+                       f"{single[k].tolist()}")
+    agree = {k: float((got[k] == single[k]).mean())
+             for k in ("class_ids", "instance_ids")
+             if len(got[k]) == len(single[k])}
+    if len(agree) < 2 or min(agree.values()) < sequences.LABEL_AGREEMENT:
+        bad.append(f"label agreement {agree}")
+    if bad:
+        raise SystemExit(f"[mesh] FAIL (b) vs the single device: {bad}; "
+                         f"pose max diff top-1 {d_top:.3g}, all "
+                         f"{d_all:.3g}; score max diff {d_score:.3g}")
+    p = profiles[0]
+    say("mesh", f"(b) bench sequence in {wall:.1f}s: pose_proposal "
+        f"{p['pose_proposal']['total']:.4f}s + segment_transfer "
+        f"{p['segment_transfer']['total']:.4f}s; proposal counts identical; "
+        f"pose max diff top-1 {d_top:.3g}, all {d_all:.3g}; score max diff "
+        f"{d_score:.3g}; arrangement identical; label agreement class "
+        f"{agree['class_ids']:.6f} instance {agree['instance_ids']:.6f}; "
+        f"kernel launches {launches}, plain calls {plain}")
+
+
+def _mesh_dpsp(bench_root: str, slots) -> None:
+    """(c): 2 pairs of a bench object on the bench level-2 slab, pairs over
+    dp = 2 and points over sp = 2, against the single-device loop."""
+    from rescan_tpu.core.pointcloud import PointCloud
+    from rescan_tpu.utils import synthetic
+    from rescan_tpu_torch.ops import gnn, icp, search
+    from rescan_tpu_torch.parallel import mesh as pmesh
+    from rescan_tpu_torch.sequences import SEQ_NAME
+
+    gt = os.path.join(bench_root, SEQ_NAME, "gt_segmentation")
+    scene = PointCloud.from_ply(os.path.join(gt, "scan_001.ply"))
+    base = PointCloud.from_ply(os.path.join(gt, "scan_000.ply"))
+    lead = slots[0]
+    slab = search.build_index(scene.pos(2), normals=scene.nrm(2), tile=1024,
+                              device=lead)
+    L0 = base.levels[0]
+    planar = {synthetic.NYU40_CLASSES.index(c) for c in ("wall", "floor")}
+    # the bench's second and third objects (a chair and the table), which
+    # stay in place in the rescan
+    uids = np.unique(L0["instance_ids"][~np.isin(L0["class_ids"],
+                                                 list(planar))])
+    uids = uids[1:3] if len(uids) >= 3 else uids[:2]
+    objs = [base.extract_by_ids(0, "instance_ids", [int(u)],
+                                compute_levels=True) for u in uids]
+    upts, unrm, umask = icp.prep_unique_batch([o.pos(2) for o in objs],
+                                              [o.nrm(2) for o in objs])
+    rng = np.random.default_rng(5)
+    T0 = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    for k in range(2):
+        a = rng.uniform(-0.05, 0.05)
+        T0[k, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]]
+        T0[k, :3, 3] = rng.uniform(-0.03, 0.03, 3) * [1, 0, 1]
+    own, val = np.arange(2), np.ones(2, bool)
+    m = pmesh.make_mesh(4, sp=2, devices=slots)
+    args = (0.075, np.deg2rad(50.0))
+    gnn.reset_counts()
+    t0 = time.perf_counter()
+    T_sh, _ = pmesh.icp_refine_indexed_dpsp(m, slab, upts, unrm, umask, own,
+                                            val, T0, *args)
+    t_sh = time.perf_counter() - t0
+    launches, plain = dict(gnn.LAUNCHES), dict(gnn.PLAIN_CALLS)
+    if launches["nearest_gated"] == 0 or any(plain.values()):
+        raise SystemExit(f"[mesh] FAIL (c): kernel launches {launches}, "
+                         f"plain calls {plain}")
+    t0 = time.perf_counter()
+    T1, _, _, n_iter = icp.icp_align_indexed(
+        *(torch.from_numpy(a).to(lead) for a in (upts, unrm, umask, own,
+                                                 val)),
+        slab, torch.from_numpy(T0).to(lead), *args)
+    T1 = T1.cpu().numpy()
+    t_1 = time.perf_counter() - t0
+    res = []
+    for k, o in enumerate(objs):
+        p = o.pos(2)
+        a = p @ T1[k, :3, :3].T + T1[k, :3, 3]
+        b = p @ T_sh[k, :3, :3].T + T_sh[k, :3, 3]
+        res.append(float(np.abs(a - b).mean()))
+    moved = [float(np.abs(T1[k] - T0[k]).max()) for k in range(2)]
+    if max(res) >= 1e-3 or not max(moved) > 0:
+        raise SystemExit(f"[mesh] FAIL (c): residuals {res}, moved {moved}")
+    say("mesh", f"(c) dp x sp ICP, 2 pairs ({upts.shape[1]} points each) "
+        f"on the {slab.n_valid}-point level-2 slab, {m.shape}: mean "
+        f"residual vs single {max(res):.3g} (limit 1e-3), pose max diff "
+        f"{np.abs(T_sh - T1).max():.3g}, {n_iter} iterations; "
+        f"{t_sh:.3f}s vs single {t_1:.3f}s (host clock); kernel launches "
+        f"{launches}, plain calls {plain}")
+
+
+def _mesh_smoothing(bench_root: str, lead) -> None:
+    """(d): the torch engine against the native one on the rescan's
+    level-1 graph, from its predicted labels with 10 % of them set to a
+    random other label (seeded), both timed."""
+    from rescan_tpu.core import database
+    from rescan_tpu.core.pointcloud import PointCloud
+    from rescan_tpu_torch.ops import labels
+    from rescan_tpu_torch.sequences import RESCAN, SEQ_NAME
+
+    seq = os.path.join(bench_root, SEQ_NAME)
+    db = database.load_database(os.path.join(seq, f"{RESCAN}.rsdb"),
+                                load_pointclouds=False)
+    cloud = PointCloud.from_ply(os.path.join(seq, "predictions",
+                                             f"{RESCAN}.ply"))
+    L = cloud.levels[0]
+    rng = np.random.default_rng(11)
+    flip = rng.random(len(L["instance_ids"])) < 0.1
+    donors = rng.integers(0, len(L["instance_ids"]), int(flip.sum()))
+    for k in ("class_ids", "instance_ids"):
+        L[k] = L[k].copy()
+        L[k][flip] = L[k][donors]
+    cloud.levels[1] = {k: v.copy() for k, v in L.items()}
+    t0 = time.perf_counter()
+    labels.build_smoothing_graph(cloud)
+    t_graph = time.perf_counter() - t0
+    out, secs = {}, {}
+    for engine, dev in (("native", None), ("torch", lead), ("torch", lead)):
+        c = copy.deepcopy(cloud)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels.smooth_labels(db, c, engine=engine, device=dev)
+        torch.cuda.synchronize()
+        secs[engine] = time.perf_counter() - t0
+        out[engine] = c.levels[1]
+    agree = {k: float((out["torch"][k] == out["native"][k]).mean())
+             for k in ("class_ids", "instance_ids")}
+    changed = float((out["torch"]["instance_ids"]
+                     != cloud.levels[1]["instance_ids"]).mean())
+    if min(agree.values()) < 0.995 or changed == 0:
+        raise SystemExit(f"[mesh] FAIL (d): agreement {agree}, changed "
+                         f"{changed}")
+    say("mesh", f"(d) smoothing of {len(L['instance_ids'])} level-1 points "
+        f"({flip.mean():.3f} relabelled at random): torch engine on {lead} "
+        f"{secs['torch']:.3f}s (second call) vs native {secs['native']:.3f}s "
+        f"(host), each including the {t_graph:.3f}s host graph build; "
+        f"agreement class {agree['class_ids']:.6f} instance "
+        f"{agree['instance_ids']:.6f}; {changed:.4f} of labels changed")
+
+
+def phase_mesh(work: str, bench_root: str, bench_class: str,
+               single: dict) -> None:
+    slots = mesh_slots()
+    where = ("4 slots on cuda:0" if len(set(slots)) == 1 else
+             f"4 slots over cards {sorted({d.index for d in slots})}")
+    say("mesh", f"{where}: {[str(d) for d in slots]}")
+    _mesh_small(work, slots)
+    _mesh_bench(work, bench_root, bench_class, slots, single)
+    _mesh_dpsp(bench_root, slots)
+    _mesh_smoothing(bench_root, slots[0])
 
 
 def main() -> int:
@@ -331,7 +570,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f}s")
         kern = phase_kernels(cuda, bench_root)
         phase_parity(cuda, work)
-        launches = phase_slice(cuda, bench_root, bench_class)
+        launches, single = phase_slice(cuda, bench_root, bench_class)
+        phase_mesh(work, bench_root, bench_class, single)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,

@@ -2,7 +2,8 @@
 
 The JAX package ``rescan_tpu`` stays the reference. This package ports
 the rescan timestep (pose_proposal -> segment_transfer, driven by
-``pipeline.driver``) with the same CLIs and files. Its one device kernel,
+``pipeline.driver``) with the same CLIs and files, on one device or on
+a single-process mesh of several (``parallel.mesh``). Its one device kernel,
 the gated nearest-neighbour search, is hand-written CUDA for Hopper
 (``ops/csrc/gnn.cu``) with a plain PyTorch version beside it
 (``ops/gnn.py``). Host code that never imports JAX — ``config``, ``io``,
@@ -24,13 +25,14 @@ torch.set_float32_matmul_precision("highest")
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; by default cuda when available, else
-    cpu. Asking for cuda without a card raises — the stages never fall
-    back to the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available")
+    """``device`` as a torch.device, cuda by default (with its index).
+    Cuda without a card raises: the CPU is used only when it is asked for
+    by name."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 # Far-sentinel coordinate for padding queries/points (pallas_nn.py:118).
 FAR = 1e6
 SCENE_TILE = 2048
@@ -44,12 +46,20 @@ QUERY_BLOCK = 128
 # that need to show which path ran reset them with ``reset_counts``.
 LAUNCHES = {"gated_min": 0, "nearest_gated": 0}
 PLAIN_CALLS = {"gated_min": 0, "nearest_gated": 0}
+# shard slots call the wrappers from several threads (parallel/mesh.py)
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
+    with _count_lock:
+        for d in (LAUNCHES, PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
+
+
+def _count(counts: dict, name: str) -> None:
+    with _count_lock:
+        counts[name] += 1
 
 
 def morton_key(points: np.ndarray, cell: float) -> np.ndarray:
@@ -97,10 +107,11 @@ class SortedSlab:
 
 
 def slab_from_numpy(slab, tile_bounds, perm, n_valid, center, tile: int,
-                    device="cpu") -> SortedSlab:
-    """The port's slab from a slab's arrays as numpy — the JAX
-    package's ``SortedSlab`` fields, or ``build_sorted_slab``'s."""
-    dev = torch.device(device)
+                    device=None) -> SortedSlab:
+    """The port's slab on ``device`` (``resolve_device``: cuda unless the
+    CPU is named) from a slab's arrays as numpy — the JAX package's
+    ``SortedSlab`` fields, or ``build_sorted_slab``'s."""
+    dev = resolve_device(device)
     return SortedSlab(
         slab=torch.tensor(np.asarray(slab, np.float32)).to(dev),
         tile_bounds=torch.tensor(np.asarray(tile_bounds,
@@ -113,12 +124,12 @@ def slab_from_numpy(slab, tile_bounds, perm, n_valid, center, tile: int,
 
 def build_sorted_slab(points: np.ndarray, normals: np.ndarray,
                       cell: float = 0.4, tile: int = SCENE_TILE,
-                      device="cpu") -> SortedSlab:
+                      device=None) -> SortedSlab:
     """Morton-sort the points about their bbox centre and cut them into
     tiles of ``tile`` columns, starting a new tile at every coarse-octant
     boundary so no tile straddles a Morton jump (pallas_nn.py:304-395,
     without the VMEM split and the tile-count buckets). Padding columns
-    sit at FAR."""
+    sit at FAR. ``device`` as in ``slab_from_numpy``."""
     pts = np.asarray(points, np.float32)
     nrm = np.asarray(normals, np.float32)
     n = len(pts)
@@ -328,7 +339,7 @@ def nearest_gated_ref(slab: SortedSlab, q_pos: torch.Tensor,
                       q_nrm: torch.Tensor, radius, cos_gate,
                       use_abs_dot: bool = False):
     """Plain PyTorch K2: (idx int32 in original order or -1, d2, dot)."""
-    PLAIN_CALLS["nearest_gated"] += 1
+    _count(PLAIN_CALLS, "nearest_gated")
     best = _query_ref(slab, q_pos, q_nrm, radius, cos_gate, use_abs_dot)
     found, col, d2, dot = _unpack_ref(slab, q_nrm, best, use_abs_dot)
     idx = torch.where(found, slab.perm[col], -1).to(torch.int32)
@@ -338,7 +349,7 @@ def nearest_gated_ref(slab: SortedSlab, q_pos: torch.Tensor,
 def gated_min_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
                   radius, cos_gate, use_abs_dot: bool = False):
     """Plain PyTorch K1: (d2, dot) of the nearest qualifying point."""
-    PLAIN_CALLS["gated_min"] += 1
+    _count(PLAIN_CALLS, "gated_min")
     best = _query_ref(slab, q_pos, q_nrm, radius, cos_gate, use_abs_dot)
     _, _, d2, dot = _unpack_ref(slab, q_nrm, best, use_abs_dot)
     return d2, dot
@@ -438,7 +449,7 @@ def _launch(slab: SortedSlab, q_pos, q_nrm, radius, cos_gate,
             d2.data_ptr(), dot.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gnn: kernel launch failed, cudaError {rc}")
-    LAUNCHES["nearest_gated" if want_idx else "gated_min"] += 1
+    _count(LAUNCHES, "nearest_gated" if want_idx else "gated_min")
     return idx, d2, dot
 
 

@@ -30,6 +30,7 @@ import torch
 from rescan_tpu import config
 
 from . import gnn, search
+from .reduce import small_matmul, tree_sum
 
 
 def _rotation_xyz(ax, ay, az):
@@ -48,7 +49,7 @@ def _rotation_xyz(ax, ay, az):
     rz = torch.stack([torch.stack([cz, -sz, zero], -1),
                       torch.stack([sz, cz, zero], -1),
                       torch.stack([zero, zero, one], -1)], -2)
-    return rx @ ry @ rz
+    return small_matmul(small_matmul(rx, ry), rz)
 
 
 def cos_gate_of(max_angle) -> float:
@@ -57,9 +58,25 @@ def cos_gate_of(max_angle) -> float:
     return float(torch.cos(torch.tensor(np.float32(max_angle))))
 
 
+def _no_sum(*xs):
+    return xs
+
+
 def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
-              err, dist: np.float32, active, it: int, cos_gate: float):
-    """One iteration for every pair; returns (T, err, active)."""
+              err, dist: np.float32, active, it: int, cos_gate: float,
+              allsum=None):
+    """One iteration for every pair; returns (T, err, active).
+
+    Every per-pair sum over points is a ``tree_sum`` (ops/reduce.py), so
+    a pair's result does not depend on the pairs batched beside it. The
+    sums come in four dependent rounds (count and sum of d2; sum of
+    squared deviations; sums of w, w*q and w*p2; the normal system and
+    the error); everything after a round is computed from its totals.
+    ``allsum``: with each pair's points split over shards
+    (parallel/mesh.py, the sp mode), a function that adds a round's
+    per-pair partial sums over the shards, by the same tree, and hands
+    every shard the same totals. None on one shard."""
+    total = allsum or _no_sum
     B, N, _ = obj_pts.shape
     R = T[:, :3, :3]
     t = T[:, :3, 3]
@@ -80,19 +97,23 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     dist_f = float(dist)
     w = torch.where(ok, (1.0 - d2 / dist_f) * dot, 0.0)
     # 2.5-sigma rejection on squared distances (icp.h:393-401)
-    cnt_raw = ok.sum(1)
+    cnt_raw, d2_sum = total(ok.sum(1), tree_sum(torch.where(ok, d2, 0.0)))
     cnt = cnt_raw.clamp_min(1)
-    mean = torch.where(ok, d2, 0.0).sum(1) / cnt
-    var = torch.where(ok, (d2 - mean[:, None]) ** 2, 0.0).sum(1) / cnt
+    mean = d2_sum / cnt
+    (dev_sum,) = total(tree_sum(
+        torch.where(ok, (d2 - mean[:, None]) ** 2, 0.0)))
+    var = dev_sum / cnt
     std = torch.sqrt(var)
     keep = (std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None])
     w = torch.where(keep, w, 0.0)
 
-    wsum = w.sum(1)
+    (s3,) = total(tree_sum(torch.cat([w[..., None], w[..., None] * q,
+                                      w[..., None] * p2], -1)))
+    wsum, wq, wp2 = s3[:, 0], s3[:, 1:4], s3[:, 4:7]
     has_corrs = (cnt_raw > 0) & (wsum > 1e-7)
     wsafe = wsum.clamp_min(1e-30)
-    c1 = torch.einsum("bn,bni->bi", w, q) / wsafe[:, None]
-    c2 = torch.einsum("bn,bni->bi", w, p2) / wsafe[:, None]
+    c1 = wq / wsafe[:, None]
+    c2 = wp2 / wsafe[:, None]
     p = q - c1[:, None, :]
     qq = p2 - c2[:, None, :]
     d = p - qq
@@ -101,8 +122,14 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
 
     # 6x6 normal system: J = [c; n] per correspondence (Low '04)
     j6 = torch.cat([cxn, n2], dim=-1)                       # (B, N, 6)
-    C = torch.einsum("bni,bnj->bij", w[..., None] * j6, j6)
-    b = -torch.einsum("bni,bn->bi", j6, w * ddn)
+    wj6 = w[..., None] * j6
+    wd = w * ddn
+    (s4,) = total(tree_sum(torch.cat([
+        (wj6[..., :, None] * j6[..., None, :]).reshape(B, N, 36),
+        j6 * wd[..., None], (wd * ddn)[..., None]], -1)))
+    C = s4[:, :36].reshape(B, 6, 6)
+    b = -s4[:, 36:42]
+    e2 = s4[:, 42]
     tr = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     C = C + torch.eye(6, dtype=C.dtype, device=C.device)[None] \
         * (1e-6 * tr / 6.0 + 1e-20)
@@ -110,7 +137,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     x = x[..., 0]
     x = torch.where(torch.isfinite(x) & (info == 0)[:, None], x, 0.0)
 
-    new_err = torch.sqrt((w * ddn * ddn).sum(1) / wsafe)
+    new_err = torch.sqrt(e2 / wsafe)
     Rx = _rotation_xyz(x[:, 0], x[:, 1], x[:, 2])
     tx = x[:, 3:6]
     upd = torch.zeros((B, 4, 4), dtype=torch.float32, device=T.device)
@@ -119,7 +146,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     upd[:, 3, 3] = 1.0
 
     do_update = active & has_corrs
-    T_new = torch.where(do_update[:, None, None], upd @ T, T)
+    T_new = torch.where(do_update[:, None, None], small_matmul(upd, T), T)
     err_new = torch.where(do_update, new_err, err)
     converged = (it > config.ICP_CONVERGE_MIN_ITER) & \
         ((err - err_new).abs() < config.ICP_CONVERGE_DELTA)
@@ -130,7 +157,7 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
                       uobj_mask: torch.Tensor, obj_of_pair: torch.Tensor,
                       pair_valid: torch.Tensor, index: gnn.SortedSlab,
                       T_init: torch.Tensor, max_dist, max_angle,
-                      max_iter: int = config.ICP_MAX_ITER
+                      max_iter: int = config.ICP_MAX_ITER, allsum=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  int]:
     """Refine B rigid transforms against the scene ``index``.
@@ -138,7 +165,9 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
     uobj_pts/uobj_nrm: (O, N, 3) per-object padded points (pad_batch over
     the unique objects); uobj_mask: (O, N); obj_of_pair: (B,) row of each
     pair's object; pair_valid: (B,) False rows start inactive; T_init:
-    (B, 4, 4). All on the index's device.
+    (B, 4, 4). All on the index's device. ``allsum``: the cross-shard
+    sum of the sp mode (see ``_icp_step``); the all-padding start mask
+    goes through it too, so every shard starts and stops alike.
 
     Returns (T, err, active, n_iter): refined transforms, final
     point-to-plane errors, the pairs still active when the loop stopped,
@@ -155,12 +184,13 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
     err = torch.full((B,), 1e6, dtype=torch.float32, device=T.device)
     dist = np.float32(max_dist)
     # all-padding rows start inactive
-    active = obj_mask.sum(1) > 0
+    (n_pts,) = (allsum or _no_sum)(obj_mask.sum(1))
+    active = n_pts > 0
     it = 0
     while it < max_iter and bool(active.any()):
         T, err, active = _icp_step(obj_pts, obj_nrm, obj_mask, index,
                                    scene_pts, scene_nrm, T, err, dist,
-                                   active, it, cos_gate)
+                                   active, it, cos_gate, allsum=allsum)
         dist = np.maximum(np.float32(dist * np.float32(config.ICP_DIST_ANNEAL)),
                           np.float32(config.ICP_DIST_FLOOR))
         it += 1

@@ -23,6 +23,7 @@ import torch
 from rescan_tpu import config
 
 from . import gnn, search
+from .reduce import tree_sum
 
 # queries per launch: bounds the (h, Pp, 3) transform and the outputs
 MAX_QUERIES_PER_LAUNCH = 1 << 22
@@ -61,15 +62,12 @@ def prep_points(obj_pts: np.ndarray, obj_nrm: np.ndarray
     return pts, nrm, mask
 
 
-def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,
+def _score_terms(index: gnn.SortedSlab, pts_all: torch.Tensor,
                  nrm_all: torch.Tensor, mask_all: torch.Tensor,
-                 hyps: torch.Tensor, owner: torch.Tensor, radius,
-                 sigma) -> torch.Tensor:
-    """Score h hypotheses whose object points are pts_all[owner[h]].
-
-    pts_all/nrm_all: (R, Pp, 3); mask_all: (R, Pp); hyps: (h, 4, 4);
-    owner: (h,) int64. Returns (h,) scores.
-    """
+                 hyps: torch.Tensor, owner: torch.Tensor, radius, sigma
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point scores (h, Pp) of h hypotheses whose object points are
+    pts_all[owner[h]], and the points' mask (h, Pp)."""
     R = hyps[:, :3, :3]
     t = hyps[:, :3, 3]
     pts = pts_all[owner]
@@ -90,9 +88,22 @@ def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,
               * torch.exp(-(angle * angle)
                           / (2.0 * config.SCORE_NORMAL_SIGMA ** 2))
               + (1.0 - config.SCORE_ALPHA) * torch.exp(-d2 / s2))
-    per_pt = torch.where(found, per_pt, 0.0)
+    return torch.where(found, per_pt, 0.0), mask
+
+
+def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,
+                 nrm_all: torch.Tensor, mask_all: torch.Tensor,
+                 hyps: torch.Tensor, owner: torch.Tensor, radius,
+                 sigma) -> torch.Tensor:
+    """Score h hypotheses whose object points are pts_all[owner[h]].
+
+    pts_all/nrm_all: (R, Pp, 3); mask_all: (R, Pp); hyps: (h, 4, 4);
+    owner: (h,) int64. Returns (h,) scores.
+    """
+    per_pt, mask = _score_terms(index, pts_all, nrm_all, mask_all, hyps,
+                                owner, radius, sigma)
     cnt = mask.sum(1).clamp_min(1)
-    return per_pt.sum(1) / cnt
+    return tree_sum(per_pt) / cnt
 
 
 class ScoreStream:
@@ -104,12 +115,21 @@ class ScoreStream:
     runs it while the host prepares the next request). ``collect``
     launches the partial tails, waits, and returns one score array per
     request, in submission order.
+
+    ``mesh``: an optional parallel.mesh.Mesh — every launch then splits
+    its hypotheses over the mesh's slots (``score_multi_sharded``), with
+    the slab and the object tables replicated. Slices are multiples of
+    the slot count: full slices are rounded down to one (as the JAX
+    package rounds them), partial tails are padded up to one with
+    far-translated hypotheses, whose query blocks are near no tile.
     """
 
-    def __init__(self, index: gnn.SortedSlab, radius: float, sigma: float):
+    def __init__(self, index: gnn.SortedSlab, radius: float, sigma: float,
+                 mesh=None):
         self.index = index
         self.radius = radius
         self.sigma = sigma
+        self.mesh = mesh
         self._groups = {}   # Pp -> group state
         self._n_req = 0
 
@@ -119,18 +139,40 @@ class ScoreStream:
                 "hyps": [], "owners": [], "req": [], "n_queued": 0,
                 "launched": []}
 
+    def _h_slice(self, pp: int) -> int:
+        h = max(MAX_QUERIES_PER_LAUNCH // pp, 1)
+        if self.mesh is not None:
+            nd = self.mesh.size
+            h = max((h // nd) * nd, nd)
+        return h
+
     def _launch(self, g: dict, hyps: np.ndarray, owners: np.ndarray) -> None:
         dev = self.index.device
         if g["table"] is None:
             g["table"] = tuple(torch.from_numpy(np.stack(g[k])).to(dev)
                                for k in ("pts", "nrm", "mask"))
-        pts, nrm, mask = g["table"]
-        g["launched"].append(_score_multi(
-            self.index, pts, nrm, mask, torch.from_numpy(hyps).to(dev),
-            torch.from_numpy(owners).to(dev), self.radius, self.sigma))
+        if self.mesh is None:
+            g["launched"].append((len(hyps), _score_multi(
+                self.index, *g["table"], torch.from_numpy(hyps).to(dev),
+                torch.from_numpy(owners).to(dev), self.radius, self.sigma)))
+            return
+        from ..parallel import mesh as pmesh
+        nd = self.mesh.size
+        hp = -(-len(hyps) // nd) * nd
+        mats = np.tile(np.eye(4, dtype=np.float32), (hp, 1, 1))
+        mats[:, :3, 3] = 2 * gnn.FAR
+        mats[:len(hyps)] = hyps
+        own = np.zeros(hp, np.int64)
+        own[:len(owners)] = owners
+        g["launched"].append((len(hyps), pmesh.score_multi_sharded(
+            self.mesh, self.index, *g["table"], mats, own, self.radius,
+            self.sigma)))
+
+    def _read(self, launched) -> torch.Tensor:
+        return launched if self.mesh is None else self.mesh.gather(launched)
 
     def _drain(self, g: dict, pp: int, full_only: bool) -> None:
-        h_slice = max(MAX_QUERIES_PER_LAUNCH // pp, 1)
+        h_slice = self._h_slice(pp)
         if not g["n_queued"] or (full_only and g["n_queued"] < h_slice):
             return
         hyps = np.concatenate(g["hyps"])
@@ -170,7 +212,8 @@ class ScoreStream:
         results: List[np.ndarray] = [np.zeros(0, np.float32)] * self._n_req
         for pp, g in sorted(self._groups.items()):
             self._drain(g, pp, full_only=False)
-            scores = (torch.cat(g["launched"]).cpu().numpy()
+            scores = (torch.cat([self._read(r)[:n] for n, r in
+                                 g["launched"]]).cpu().numpy()
                       if g["launched"] else np.zeros(0, np.float32))
             offset = 0
             for req_idx, n_h in g["req"]:
@@ -184,10 +227,10 @@ class ScoreStream:
 def score_requests(index: gnn.SortedSlab,
                    requests: Sequence[Tuple[np.ndarray, np.ndarray,
                                             np.ndarray]],
-                   radius, sigma) -> List[np.ndarray]:
+                   radius, sigma, mesh=None) -> List[np.ndarray]:
     """Score a batch of (obj_pts, obj_nrm, hyps) requests; returns one
     (H_i,) score array per request."""
-    stream = ScoreStream(index, radius, sigma)
+    stream = ScoreStream(index, radius, sigma, mesh=mesh)
     for pts, nrm, hyps in requests:
         stream.submit(pts, nrm, hyps)
     return stream.collect()

@@ -17,9 +17,9 @@ from . import gnn
 
 
 def build_index(points: np.ndarray, normals: Optional[np.ndarray] = None,
-                tile: int = gnn.SCENE_TILE, device="cpu") -> gnn.SortedSlab:
+                tile: int = gnn.SCENE_TILE, device=None) -> gnn.SortedSlab:
     """The slab of ``points`` (with their normals, zeros if absent) on
-    ``device``."""
+    ``device`` (cuda unless the CPU is named)."""
     nrm = (np.zeros_like(np.asarray(points, np.float32)) if normals is None
            else normals)
     return gnn.build_sorted_slab(points, nrm, tile=tile, device=device)

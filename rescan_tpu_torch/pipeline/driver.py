@@ -25,7 +25,7 @@ import torch
 from rescan_tpu.pipeline import create_eval_files, seg2rsdb
 from rescan_tpu.pipeline.fuse_models import fuse_models
 
-from .. import resolve_device
+from ..parallel import mesh as pmesh
 from . import pose_proposal, segment_transfer
 
 
@@ -56,7 +56,7 @@ def run_sequence(seq_dir: str, class_file: str,
                  resume: bool = False,
                  in_memory: bool = True,
                  profiles: Optional[list] = None,
-                 device=None) -> List[str]:
+                 device=None, devices=None) -> List[str]:
     """Process one scene sequence; returns the list of produced .rsdb
     files (one per timestep).
 
@@ -66,9 +66,12 @@ def run_sequence(seq_dir: str, class_file: str,
     cloud from disk per stage; outputs are identical. ``profiles``:
     optional list that receives one ``{"timestep", "pose_proposal",
     "segment_transfer"}`` dict of per-substage wall seconds per rescan.
-    ``device``: where the kernels run (default: cuda when available).
+    ``device``: where the kernels run; ``devices``: the mesh's device
+    list, led by ``device`` (parallel.mesh.resolve_devices; by default
+    every visible card, capped by RESCAN_DEVICES). No default picks the
+    CPU: name it (``device="cpu"``).
     """
-    dev = resolve_device(device)
+    devs = pmesh.resolve_devices(device, devices)
     gt_dir = os.path.join(seq_dir, "gt_segmentation")
     subs = list_subsequences(gt_dir)
     if not subs:
@@ -103,9 +106,9 @@ def run_sequence(seq_dir: str, class_file: str,
             db = None   # state must come from the checkpoint on disk
             continue
         db = pose_proposal.run(prev_rsdb, scan_ply, pp_rsdb, verbose,
-                               db=db, device=dev)
+                               db=db, devices=devs)
         db = segment_transfer.run(pp_rsdb, out_rsdb, verbose=verbose,
-                                  db=db, device=dev)
+                                  db=db, devices=devs)
         if profiles is not None:
             profiles.append({
                 "timestep": sub,
@@ -158,10 +161,11 @@ def main(argv=None) -> int:
                     help="write a torch.profiler chrome trace into this "
                     "directory")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+                    help="torch device, e.g. cpu or cuda:1 (default: every "
+                    "visible card, capped by RESCAN_DEVICES)")
     ap.add_argument("--verbose", "-v", action="store_true")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    devs = pmesh.resolve_devices(args.device)
 
     poisson, trimmer = args.poisson_recon, args.surface_trimmer
     if args.binary_folder and not poisson:
@@ -173,7 +177,7 @@ def main(argv=None) -> int:
     prof = None
     if args.profile_dir:
         acts = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
+        if devs[0].type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
@@ -185,7 +189,7 @@ def main(argv=None) -> int:
             run_sequence(os.path.join(base, seq), args.class_file,
                          poisson, trimmer, args.eval_folder, args.verbose,
                          resume=args.resume,
-                         in_memory=not args.stage_reload, device=dev)
+                         in_memory=not args.stage_reload, devices=devs)
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)

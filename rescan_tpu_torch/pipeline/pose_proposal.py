@@ -6,13 +6,15 @@ CLI-compatible with the reference binary (apps/pose_proposal/main.cpp):
     python -m rescan_tpu_torch.pipeline.pose_proposal \
         <rsdb_filename> <scene_filename> <output_filename> [-v] [--device D]
 
-Same stage flow and ``timings`` keys as the JAX stage, on one device:
-scene ingest, the level-1 scene slab and the exact occupancy prune, the
-level-4 grid search over the (x, z, theta) lattice of every dynamic
-object, level-3/2 verification, NMS, batched ICP of every (object,
-proposal) pair, the level-1 rescore, and the final NMS and sort.
-Scoring goes through ops/score.py (kernel K1), the ICP through
-ops/icp.py (kernel K2).
+Same stage flow and ``timings`` keys as the JAX stage: scene ingest, the
+level-1 scene slab and the exact occupancy prune, the level-4 grid
+search over the (x, z, theta) lattice of every dynamic object, level-3/2
+verification, NMS, batched ICP of every (object, proposal) pair, the
+level-1 rescore, and the final NMS and sort. Scoring goes through
+ops/score.py (kernel K1), the ICP through ops/icp.py (kernel K2). With
+more than one device (by default every visible card), every scoring
+launch splits its hypotheses and the ICP its pairs over the mesh
+(parallel/mesh.py), as the JAX stage does.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from rescan_tpu.core.pointcloud import PointCloud
 from rescan_tpu.io import paths, rsdb as rsdbio
 from rescan_tpu.ops import voxel
 
-from .. import resolve_device
 from ..ops import icp, score, search
+from ..parallel import mesh as pmesh
 
 
 class SceneOccupancy:
@@ -215,12 +217,13 @@ def _select_cell_best(s4: np.ndarray, cell_of_hyp: np.ndarray,
 def grid_search_all_objects(db: rsdbio.Rsdb, scene_grid, scene_bbox,
                             occupancy: "SceneOccupancy | None",
                             verbose: bool = False,
-                            timings: dict | None = None
+                            timings: dict | None = None, mesh=None
                             ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Coarse-to-fine grid search for every dynamic object, level-major:
     the occupancy prune runs threaded across objects, then each level's
-    scoring for ALL objects shares one launch stream. Returns per-object
-    (poses (K,4,4), scores (K,))."""
+    scoring for ALL objects shares one launch stream (sharded over
+    ``mesh`` when given). Returns per-object (poses (K,4,4), scores
+    (K,))."""
     lvl = config.GRID_SEARCH_LEVELS[0]
     hyps, cell_of_hyp, _ = score.grid_search_hypotheses(
         scene_bbox[0], scene_bbox[1])
@@ -243,7 +246,7 @@ def grid_search_all_objects(db: rsdbio.Rsdb, scene_grid, scene_bbox,
     prepped = {(i, lvl): score.prep_points(db.objects[i].cloud.pos(lvl),
                                            db.objects[i].cloud.nrm(lvl))
                for i in dyn}
-    stream = score.ScoreStream(scene_grid, radius, sigma)
+    stream = score.ScoreStream(scene_grid, radius, sigma, mesh=mesh)
     alive = {}
     req_of = {}
     for i in dyn:
@@ -290,7 +293,7 @@ def grid_search_all_objects(db: rsdbio.Rsdb, scene_grid, scene_bbox,
     # :348-359, and die in NMS via its score < 0.01 rule) ---
     for vlvl in config.GRID_SEARCH_LEVELS[1:]:
         t0 = time.perf_counter()
-        stream = score.ScoreStream(scene_grid, radius, sigma)
+        stream = score.ScoreStream(scene_grid, radius, sigma, mesh=mesh)
         submitted = []
         for i in dyn:
             valid = scores_of[i] > 0.0
@@ -322,6 +325,21 @@ def grid_search_all_objects(db: rsdbio.Rsdb, scene_grid, scene_bbox,
                   else np.zeros(0, bool))
         results[i] = (poses_of[i][aliveM], scores_of[i][aliveM])
     return results
+
+
+def propose_poses_for_object(obj: PointCloud, scene_grid, scene_bbox,
+                             verbose: bool = False,
+                             occupancy: "SceneOccupancy | None" = None,
+                             mesh=None) -> Tuple[np.ndarray, np.ndarray]:
+    """The grid search of one object (the JAX package's test and dry-run
+    entry point), through ``grid_search_all_objects`` on a one-object
+    database. Returns (poses (K,4,4), scores (K,))."""
+    db = rsdbio.Rsdb()
+    db.objects.append(rsdbio.RsObject(uidx=0, filename="object.ply",
+                                      class_idx=0, cloud=obj))
+    (out,) = grid_search_all_objects(db, scene_grid, scene_bbox, occupancy,
+                                     verbose=verbose, mesh=mesh)
+    return out
 
 
 def non_maxima_suppression(db: rsdbio.Rsdb,
@@ -378,12 +396,19 @@ def non_maxima_suppression(db: rsdbio.Rsdb,
 
 def run(rsdb_filename: str, scene_filename: str, output_filename: str,
         verbose: bool = False, save_outputs: bool = True,
-        db: "rsdbio.Rsdb | None" = None, device=None) -> rsdbio.Rsdb:
+        db: "rsdbio.Rsdb | None" = None, device=None,
+        devices=None) -> rsdbio.Rsdb:
     """``db``: optional in-memory database from the previous stage — skips
     the from-disk reload of every object/scene cloud. ``device``: where
-    the scene indexes live and the kernels run (default: cuda when
-    available, else cpu)."""
-    dev = resolve_device(device)
+    the scene indexes live and the kernels run; ``devices``: the mesh's
+    device list, led by ``device`` (parallel.mesh.resolve_devices; by
+    default every visible card, capped by RESCAN_DEVICES)."""
+    devs = pmesh.resolve_devices(device, devices)
+    dev = devs[0]
+    mesh = pmesh.Mesh(devs) if len(devs) > 1 else None
+    if verbose and mesh is not None:
+        print(f"PARALLEL: sharding over {mesh.size} slots "
+              f"({', '.join(map(str, devs))})")
     if db is None:
         db = database.load_database(rsdb_filename, load_pointclouds=True,
                                     verbose=verbose)
@@ -436,7 +461,8 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
 
     # --- multiresolution grid search, all dynamic objects level-major ---
     proposals = grid_search_all_objects(db, scene_grid, bbox, occupancy,
-                                        verbose=verbose, timings=timings)
+                                        verbose=verbose, timings=timings,
+                                        mesh=mesh)
 
     timings["grid_search"] = time.perf_counter() - t_stage
     if verbose:
@@ -503,11 +529,17 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
         val = torch.ones(len(owners), dtype=torch.bool, device=dev)
         T_all = torch.from_numpy(np.stack(flat_T).astype(np.float32)).to(dev)
         upts, unrm, umask = ubatch
-        T_ref, _, _, _ = icp.icp_align_indexed(
-            upts, unrm, umask, own, val, icp_grid, T_all,
-            config.REFINE_ICP_MAX_DIST,
-            np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG))
-        T_ref = T_ref.cpu().numpy()
+        if mesh is not None:
+            T_ref, _ = pmesh.icp_refine_indexed_sharded(
+                mesh, icp_grid, upts, unrm, umask, own, val, T_all,
+                config.REFINE_ICP_MAX_DIST,
+                np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG))
+        else:
+            T_ref, _, _, _ = icp.icp_align_indexed(
+                upts, unrm, umask, own, val, icp_grid, T_all,
+                config.REFINE_ICP_MAX_DIST,
+                np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG))
+            T_ref = T_ref.cpu().numpy()
         timings["icp_refine"] = time.perf_counter() - t_stage
         if verbose:
             print(f"PROFILE: ICP refinement {timings['icp_refine']:.2f}s")
@@ -517,7 +549,7 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
         # launch stream
         qlvl = config.REFINE_SCORE_QUERY_LVL
         radius = sigma = config.SCORE_SEARCH_RADII[slvl]
-        stream = score.ScoreStream(scene_grid, radius, sigma)
+        stream = score.ScoreStream(scene_grid, radius, sigma, mesh=mesh)
         obj_order = []
         for i, entries in by_obj.items():
             name = db.class_name(db.objects[i].class_idx)
@@ -574,7 +606,8 @@ def main(argv=None) -> int:
     ap.add_argument("output_filename")
     ap.add_argument("--verbose", "-v", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+                    help="torch device, e.g. cpu or cuda:1 (default: every "
+                    "visible card, capped by RESCAN_DEVICES)")
     args = ap.parse_args(argv)
     run(args.rsdb_filename, args.scene_filename, args.output_filename,
         args.verbose, device=args.device)

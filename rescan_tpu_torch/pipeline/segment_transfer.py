@@ -15,7 +15,9 @@ carry static placements forward, ICP-refine placements to the scene
 smooth, augment the object database with newly observed geometry
 (ICP again), save db + segmented scene (level-1 PLY). Planes, saliency,
 the energy, greedy/SA and smoothing are the shared host code of
-rescan_tpu.
+rescan_tpu. With more than one device (by default every visible card),
+the refine-to-scene ICP and label transfer are sharded over the mesh
+(parallel/mesh.py), as the JAX stage shards them.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from rescan_tpu.ops import energy, planes
 
 from .. import resolve_device
 from ..ops import icp, labels as labels_ops, search
+from ..parallel import mesh as pmesh
 
 
 def compute_scene_saliency(db: rsdbio.Rsdb, scene_idx: int) -> None:
@@ -99,10 +102,15 @@ def add_static_objects(db: rsdbio.Rsdb, scene_idx: int) -> None:
 
 def refine_alignment_to_scene(db: rsdbio.Rsdb, scene_idx: int,
                               skip_static: bool = True,
-                              device="cpu") -> None:
+                              device=None, mesh=None) -> None:
     """rsdb_refine_alignment_of_objects_to_scene (rs_database.h:216-232):
-    batched ICP of every (dynamic) placement at level 2, 0.075 m, 50 deg."""
-    dev = torch.device(device)
+    batched ICP of every (dynamic) placement at level 2, 0.075 m, 50 deg.
+
+    ``mesh``: a parallel.mesh.Mesh led by ``device``. The pairs are split
+    over its slots; when they cannot fill it, each pair's points are
+    split too (the dp x sp mode, parallel.mesh.refine_sp_factor), as the
+    JAX stage does."""
+    dev = resolve_device(device)
     arr = db.arrangements[scene_idx]
     idxs = [i for i, p in enumerate(arr)
             if not (skip_static and db.is_object_static(p.object_idx))]
@@ -127,23 +135,30 @@ def refine_alignment_to_scene(db: rsdbio.Rsdb, scene_idx: int,
     val = torch.ones(len(idxs), dtype=torch.bool, device=dev)
     T0 = torch.from_numpy(np.stack([arr[i].pose for i in idxs])
                           .astype(np.float32)).to(dev)
-    T, _, _, _ = icp.icp_align_indexed(
-        upts, unrm, umask, own, val, grid, T0,
-        config.SCENE_REFINE_ICP_MAX_DIST,
-        np.deg2rad(config.SCENE_REFINE_ICP_MAX_ANGLE_DEG))
-    T = T.cpu().numpy()
+    args = (config.SCENE_REFINE_ICP_MAX_DIST,
+            np.deg2rad(config.SCENE_REFINE_ICP_MAX_ANGLE_DEG))
+    if mesh is None:
+        T, _, _, _ = icp.icp_align_indexed(upts, unrm, umask, own, val,
+                                           grid, T0, *args)
+        T = T.cpu().numpy()
+    else:
+        sp = pmesh.refine_sp_factor(len(idxs), upts.shape[1], mesh.size)
+        if sp > 1:
+            mesh = pmesh.make_mesh(sp=sp, devices=mesh.devices)
+        T, _ = pmesh.icp_refine_indexed_dpsp(mesh, grid, upts, unrm, umask,
+                                             own, val, T0, *args)
     for k, i in enumerate(idxs):
         arr[i] = dataclasses.replace(arr[i], pose=T[k])
 
 
 def augment_database(db: rsdbio.Rsdb, scene_idx: int,
-                     timings: dict | None = None, device="cpu") -> None:
+                     timings: dict | None = None, device=None) -> None:
     """rsdu_augment_database (apps/segment_transfer/database_update.cpp:22-92):
     merge each placement's newly observed points (extracted from scene level
     1 by uidx) back into the object's canonical cloud, cloning the object
     when the uidx is novel; dynamic extractions are ICP-aligned to the model
     (0.05 m, 10 deg) before merging."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if timings is None:
         timings = {}
     timings.setdefault("aug_extract", 0.0)
@@ -201,13 +216,18 @@ def augment_database(db: rsdbio.Rsdb, scene_idx: int,
 def run(input_db: str, output_db: str,
         opts: config.ArrangementOpts | None = None,
         verbose: bool = False,
-        db: rsdbio.Rsdb | None = None, device=None) -> rsdbio.Rsdb:
+        db: rsdbio.Rsdb | None = None, device=None,
+        devices=None) -> rsdbio.Rsdb:
     """``db``: optional in-memory database from pose_proposal — skips the
     from-disk reload of every cloud AND the pose-proposal .bin reread
     (the fused driver's path; files on disk stay authoritative).
-    ``device``: where the ICP and label-transfer kernels run (default:
-    cuda when available, else cpu)."""
-    dev = resolve_device(device)
+    ``device``: where the ICP, label-transfer and smoothing work runs;
+    ``devices``: the mesh's device list, led by ``device``
+    (parallel.mesh.resolve_devices; by default every visible card, capped
+    by RESCAN_DEVICES)."""
+    devs = pmesh.resolve_devices(device, devices)
+    dev = devs[0]
+    mesh = pmesh.Mesh(devs) if len(devs) > 1 else None
     opts = opts or config.ArrangementOpts()
     timings = {}
     t_run = time.perf_counter()
@@ -293,7 +313,8 @@ def run(input_db: str, output_db: str,
           f"{time.perf_counter() - t0:f}s.")
 
     t0 = time.perf_counter()
-    refine_alignment_to_scene(db, time_idx, skip_static=True, device=dev)
+    refine_alignment_to_scene(db, time_idx, skip_static=True, device=dev,
+                              mesh=mesh)
     timings["refine_to_scene"] = time.perf_counter() - t0
     print(f"ARRANGEMENT_OPTIMIZATION: Refining optimized poses done in "
           f"{timings['refine_to_scene']:f}s.")
@@ -301,13 +322,13 @@ def run(input_db: str, output_db: str,
     t0 = time.perf_counter()
     scene = db.scenes[time_idx].cloud
     labels_ops.arrangement_to_labels(db, scene, db.arrangements[time_idx],
-                                     device=dev)
+                                     device=dev, mesh=mesh)
     timings["label_assign"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     planes.relabel_walls_and_floors(db, scene, plane_models)
     timings["label_relabel"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    labels_ops.smooth_labels(db, scene)
+    labels_ops.smooth_labels(db, scene, device=dev)
     timings["label_smooth"] = time.perf_counter() - t1
     timings["label_transfer"] = time.perf_counter() - t0
     print(f"LABEL_TRANSFER: Segmentation finished in "
@@ -362,7 +383,8 @@ def main(argv=None) -> int:
                     help="skip optimization state: preload the arrangement "
                     "from a blob written by --save_arrangement")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when available)")
+                    help="torch device, e.g. cpu or cuda:1 (default: every "
+                    "visible card, capped by RESCAN_DEVICES)")
     args = ap.parse_args(argv)
 
     opts = config.ArrangementOpts(

@@ -80,3 +80,36 @@ def test_kernel_empty_and_ragged(cuda):
     idx, d2, _ = gnn.nearest_gated(empty, torch.from_numpy(q).to(cuda),
                                    torch.from_numpy(qn).to(cuda), 0.2, 0.0)
     assert (idx == -1).all() and torch.isinf(d2).all()
+
+
+def _mesh_devices(cuda, n):
+    """n shard slots: on every visible card in turn (all on one card when
+    there is only one)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+@pytest.mark.parametrize("n_slots", [4, 8])
+def test_mesh_launches_match_single(cuda, n_slots):
+    """The query axis split over shard slots (several on one card, or over
+    the cards): one kernel launch per slot, each on its slot's device,
+    and results gathered on the lead that equal one launch bit for bit."""
+    from rescan_tpu_torch.parallel import mesh as pmesh
+    pts, nrm, q, qn = _fixture(11, 30000, 256 * n_slots)
+    devs = _mesh_devices(cuda, n_slots)
+    m = pmesh.Mesh(devs)
+    slab = gnn.build_sorted_slab(pts, nrm, device=devs[0])
+    reps = m.replicate(slab)
+    assert [r.device for r in reps] == devs
+    gnn.reset_counts()
+    parts = pmesh.nearest_gated_sharded(m, slab, q, qn, 0.1, 0.5)
+    assert [p[0].device for p in parts] == devs
+    got = m.gather(parts)
+    assert gnn.LAUNCHES["nearest_gated"] == n_slots
+    assert gnn.PLAIN_CALLS["nearest_gated"] == 0
+    want = gnn.nearest_gated(slab, torch.from_numpy(q).to(devs[0]),
+                             torch.from_numpy(qn).to(devs[0]), 0.1, 0.5)
+    assert (want[0] >= 0).sum() > 100
+    for a, b in zip(got, want):
+        assert a.device == devs[0]
+        assert torch.equal(a, b)

@@ -19,6 +19,17 @@ COS35 = float(np.cos(np.deg2rad(np.float32(35.0))))
 COS60 = float(np.cos(np.float32(np.deg2rad(60.0))))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    torch's many small CPU ops stall on their own threads when it is
+    oversubscribed (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(seed, n=3000, m=700, dup=200):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(0, 2, (n, 3)).astype(np.float32)
@@ -36,7 +47,8 @@ def _data(seed, n=3000, m=700, dup=200):
 def _port_slab(js):
     return gnn.slab_from_numpy(np.asarray(js.slab), np.asarray(js.tile_bounds),
                                np.asarray(js.perm), int(js.n_valid),
-                               np.asarray(js.center), js.tile)
+                               np.asarray(js.center), js.tile,
+                               device="cpu")
 
 
 def _same_bits(a, b):
@@ -86,7 +98,7 @@ def test_port_slab_build_gives_reference_results():
     js = pallas_nn.build_sorted_slab(pts, nrm, tile=1024)
     ji, jd2, jdot = pallas_nn.nearest_gated_pallas(
         js, jnp.asarray(q), jnp.asarray(qn), 0.12, COS60, bq=128)
-    slab = gnn.build_sorted_slab(pts, nrm, tile=1024)
+    slab = gnn.build_sorted_slab(pts, nrm, tile=1024, device="cpu")
     np.testing.assert_array_equal(slab.center.numpy(), np.asarray(js.center))
     ti, td2, tdot = gnn.nearest_gated(slab, torch.from_numpy(q),
                                       torch.from_numpy(qn), 0.12, COS60)
@@ -139,7 +151,7 @@ def test_fma32_is_correctly_rounded():
 
 def test_unsupported_device_raises():
     pts, nrm, q, qn = _data(1, n=1000, m=60)
-    slab = gnn.build_sorted_slab(pts, nrm)
+    slab = gnn.build_sorted_slab(pts, nrm, device="cpu")
     with pytest.raises(ValueError):
         gnn.nearest_gated(slab, torch.from_numpy(q).to("meta"),
                           torch.from_numpy(qn).to("meta"), 0.1, 0.5)

@@ -12,6 +12,17 @@ from rescan_tpu_torch.ops import gnn, icp as ticp, search as tsearch
 MAX_ANGLE = np.deg2rad(60.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    torch's many small CPU ops stall on their own threads when it is
+    oversubscribed (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _make_surface(rng, n=3000):
     """A wavy surface with analytic normals (non-degenerate for pt2pl)."""
     xy = rng.uniform(0, 2, (n, 2)).astype(np.float32)
@@ -56,7 +67,8 @@ def _slab_pair(scene_pts, scene_nrm):
     slab = gnn.slab_from_numpy(np.asarray(js.slab),
                                np.asarray(js.tile_bounds),
                                np.asarray(js.perm), int(js.n_valid),
-                               np.asarray(js.center), js.tile)
+                               np.asarray(js.center), js.tile,
+                               device="cpu")
     return js, slab
 
 
@@ -186,7 +198,8 @@ def test_batched_icp_matches_jax_default_engine():
     jT, jerr = jicp.icp_align_batched(
         jnp.asarray(pts_b), jnp.asarray(nrm_b), jnp.asarray(mask_b), grid,
         jnp.asarray(T0), 0.10, MAX_ANGLE)
-    slab = gnn.build_sorted_slab(scene_pts, scene_nrm, tile=1024)
+    slab = gnn.build_sorted_slab(scene_pts, scene_nrm, tile=1024,
+                                 device="cpu")
     tT, terr = ticp.icp_align_batched(
         torch.from_numpy(pts_b), torch.from_numpy(nrm_b),
         torch.from_numpy(mask_b), slab, torch.from_numpy(T0), 0.10,
@@ -203,7 +216,7 @@ def test_icp_no_correspondences():
     rng = np.random.default_rng(12345)
     a, an = _make_surface(rng, 500)
     b = a + np.array([100.0, 0, 0], np.float32)
-    slab = gnn.build_sorted_slab(a, an)
+    slab = gnn.build_sorted_slab(a, an, device="cpu")
     pts_b, nrm_b, mask_b = ticp.pad_batch([b], [an])
     T0 = np.eye(4, dtype=np.float32)[None]
     T, _ = ticp.icp_align_batched(

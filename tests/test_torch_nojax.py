@@ -30,6 +30,7 @@ import torch
 import rescan_tpu_torch
 from rescan_tpu_torch import sequences
 from rescan_tpu_torch.ops import gnn, icp, labels, score, search
+from rescan_tpu_torch.parallel import mesh
 from rescan_tpu_torch.pipeline import driver, pose_proposal, segment_transfer
 
 rng = np.random.default_rng(0)
@@ -45,6 +46,15 @@ T, err = icp.icp_align_batched(pb, nb, mb, index,
                                torch.eye(4)[None], 0.1, np.deg2rad(60.0))
 assert s.shape == (1,) and 0.0 < s[0] <= 1.0, s
 assert torch.isfinite(T).all() and gnn.PLAIN_CALLS["nearest_gated"] > 0
+m = mesh.make_mesh(4, sp=2, devices=["cpu"] * 4)
+sm = score.score_requests(index, [(pts[:200] - 0.5, nrm[:200],
+                                   np.eye(4, dtype=np.float32)[None])],
+                          0.1, 0.1, mesh=m.flat())[0]
+Tm, _ = mesh.icp_refine_indexed_dpsp(m, index, pb, nb, mb, [0], [True],
+                                     np.eye(4, dtype=np.float32)[None], 0.1,
+                                     np.deg2rad(60.0))
+assert np.array_equal(sm, s), (sm, s)
+assert np.array_equal(Tm, T.numpy()), (Tm, T)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NOJAX_OK")
 """
@@ -52,8 +62,9 @@ print("NOJAX_OK")
 
 def test_port_imports_no_jax():
     """In a fresh interpreter without JAX_PLATFORMS (which would make
-    rescan_tpu/__init__ import JAX), every port module imports and the
-    CPU path scores and aligns without JAX being loaded."""
+    rescan_tpu/__init__ import JAX), every port module imports, the mesh
+    module included, and the CPU path scores and aligns, on one device
+    and on a CPU mesh, without JAX being loaded."""
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
@@ -78,7 +89,16 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rescan_tpu_torch.resolve_device("cuda")
-    assert rescan_tpu_torch.resolve_device(None).type == "cpu"
+    assert rescan_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_default_device_without_card_raises():
+    """No device named means CUDA: without a card it raises instead of
+    carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rescan_tpu_torch.resolve_device()
 
 
 @pytest.fixture(scope="module")

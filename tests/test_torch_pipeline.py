@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from rescan_tpu.pipeline import driver as jdriver
 from rescan_tpu_torch import sequences
@@ -22,6 +23,17 @@ from rescan_tpu_torch.pipeline import driver as tdriver
 
 REF = os.path.join(os.path.dirname(__file__), "data",
                    "torch_port_small_ref.npz")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    torch's many small CPU ops stall on their own threads when it is
+    oversubscribed (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

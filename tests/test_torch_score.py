@@ -12,6 +12,17 @@ from rescan_tpu_torch.ops import gnn, score as tscore
 from rescan_tpu_torch.pipeline import pose_proposal as tpp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    torch's many small CPU ops stall on their own threads when it is
+    oversubscribed (tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _surface(rng, n):
     xy = rng.uniform(0, 2, (n, 2)).astype(np.float32)
     z = 0.3 * np.sin(2.0 * xy[:, 0]) + 0.2 * np.cos(3.0 * xy[:, 1])
@@ -51,7 +62,8 @@ def _score_case(seed=0):
     slab = gnn.slab_from_numpy(np.asarray(js.slab),
                                np.asarray(js.tile_bounds),
                                np.asarray(js.perm), int(js.n_valid),
-                               np.asarray(js.center), js.tile)
+                               np.asarray(js.center), js.tile,
+                               device="cpu")
     objs = [tscore.prep_points(pts[k * 400:k * 400 + 150] - [1, 0, 1],
                                nrm[k * 400:k * 400 + 150])
             for k in range(3)]
@@ -91,7 +103,7 @@ def test_score_stream_matches_single_launch(monkeypatch):
     one _score_multi launch per request returns."""
     rng = np.random.default_rng(2)
     pts, nrm = _surface(rng, 4000)
-    slab = gnn.build_sorted_slab(pts, nrm)
+    slab = gnn.build_sorted_slab(pts, nrm, device="cpu")
     monkeypatch.setattr(tscore, "MAX_QUERIES_PER_LAUNCH", 128 * 7)
     reqs = []
     for k, n in enumerate((100, 300, 90, 250)):
