@@ -8,18 +8,29 @@ result lines:
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
 2. build   — the native host library and the CUDA gated-NN kernel, from
-             this checkout's sources;
+             this checkout's sources; ptxas's report and, per kernel
+             instantiation, its residency (CTAs per SM by the occupancy
+             calculator, registers, shared and local bytes);
 3. kernels — K1 (gated_min) and K2 (nearest_gated) against their plain
-             PyTorch versions on the card: random fixtures (both gate
-             kinds) and the bench scene's slabs with real scoring and ICP
-             queries; bit-identical idx/d2/dot required; both timed;
+             PyTorch versions on the card: random fixtures (duplicated
+             points, both tile sizes, both gate kinds, a query count that
+             is no multiple of the 128-query block, a block of real and
+             far queries) and two bench launches built as the pipeline
+             builds them (the K1 scoring launch, the K2 ICP launch);
+             bit-identical idx/d2/dot required. For each bench launch:
+             kernel and plain times, the pairs the kernel evaluates (the
+             host count of its run pruning) and the pairs within r, and
+             the bound. Then K1's time on the scoring launch at several
+             shared-memory carveouts, i.e. at fewer CTAs per SM;
 4. parity  — the port's driver over the small 2-scan sequence, held to
              the JAX package's committed outputs
              (tests/data/torch_port_small_ref.npz);
 5. slice   — the port's driver over bench.py's 2-scan scene (seg2rsdb,
              pose_proposal, segment_transfer) on the single device
              [cuda:0], with the kernel launch counts reset just before
-             and read just after;
+             and read just after; the label transfer's K2 launches of
+             that run are recorded and then held to the plain version
+             and measured as the bench launches of phase 3 are;
 6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
              slots on cuda:0, or over the visible cards when there are 2
              or more. (a) the small sequence held to the committed JAX
@@ -57,6 +68,13 @@ import torch  # noqa: E402
 KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
+# The bound's rates: NVIDIA's H100 SXM data sheet (HBM3, and FP32 outside
+# the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# FP32 work of one pair within r: d2 (3 subtractions, a multiply, two
+# FMAs = 8 flops) and the normal dot (a multiply, two FMAs = 5 flops)
+FLOP_PER_PAIR = 13
 
 
 def say(phase: str, msg: str) -> None:
@@ -98,15 +116,32 @@ def phase_probe() -> None:
 
 
 def phase_build() -> None:
-    from rescan_tpu.core import native
+    from rescan_tpu_torch.core import native
     from rescan_tpu_torch.ops import gnn
     t0 = time.perf_counter()
-    native._load()
+    lib = native._load()
     t1 = time.perf_counter()
     gnn.load_library()
     t2 = time.perf_counter()
-    say("build", f"native host lib {t1 - t0:.2f}s, CUDA gnn kernel "
-        f"{t2 - t1:.2f}s")
+    say("build", f"native host lib {os.path.relpath(lib._name, HERE)} "
+        f"{t1 - t0:.2f}s, CUDA gnn kernel {t2 - t1:.2f}s")
+    for line in gnn.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say("build", "ptxas " + line.strip())
+    # what would cap the CTAs per SM, each alone, on an H100: 65,536
+    # registers (allocated per warp in units of 256), 228 KiB of shared
+    # memory (1 KiB of it reserved per CTA), 32 CTA slots
+    for want_idx in (False, True):
+        for use_abs in (False, True):
+            i = gnn.kernel_info(want_idx, use_abs, torch.device("cuda", 0))
+            by_regs = 65536 // (-(-i["registers"] * 32 // 256) * 256)
+            by_smem = 228 * 1024 // (i["shared_bytes"] + 1024)
+            say("build", f"gnn_kernel<{str(want_idx).lower()}, "
+                f"{str(use_abs).lower()}>: {i['ctas_per_sm']} CTAs per SM "
+                f"(occupancy calculator, default carveout); "
+                f"{i['registers']} registers, {i['shared_bytes']} B shared, "
+                f"{i['local_bytes']} B local; alone, registers would allow "
+                f"{by_regs}, shared memory {by_smem}, CTA slots 32")
 
 
 def _compare(name, kernel_out, plain_out):
@@ -127,10 +162,12 @@ def _compare(name, kernel_out, plain_out):
 
 
 def _bench_queries(cuda, root):
-    """The bench scene's level-1 and level-2 slabs, a 4M-query scoring
-    launch and a 64-pair ICP launch built like the pipeline's."""
-    from rescan_tpu.core.pointcloud import PointCloud
-    from rescan_tpu.utils import synthetic
+    """The bench scene's K1 and K2 launches, built as the pipeline builds
+    them: (slab, queries, normals, radius, cos_gate, use_abs) of the K1
+    4M-query scoring launch on the level-1 slab and of the K2 64-pair ICP
+    launch on the level-2 slab (tile 1024)."""
+    from rescan_tpu_torch.core.pointcloud import PointCloud
+    from rescan_tpu_torch.utils import synthetic
     from rescan_tpu_torch.ops import icp, score, search
     from rescan_tpu_torch.pipeline import pose_proposal
     from rescan_tpu_torch.sequences import SEQ_NAME
@@ -140,9 +177,10 @@ def _bench_queries(cuda, root):
     base = PointCloud.from_ply(os.path.join(gt, "scan_000.ply"))
     L0 = base.levels[0]
     planar = {synthetic.NYU40_CLASSES.index(c) for c in ("wall", "floor")}
-    uid = int(min(L0["instance_ids"][~np.isin(L0["class_ids"],
-                                              list(planar))]))
-    obj = base.extract_by_ids(0, "instance_ids", [uid], compute_levels=True)
+    uids = np.unique(L0["instance_ids"][~np.isin(L0["class_ids"],
+                                                 list(planar))])
+    obj = base.extract_by_ids(0, "instance_ids", [int(uids[0])],
+                              compute_levels=True)
     c = obj.centroid(0).copy()
     c[1] = 0.0
     T = np.eye(4, dtype=np.float32)
@@ -183,20 +221,42 @@ def _bench_queries(cuda, root):
     iqn = torch.einsum("bij,bnj->bni", Tt[:, :3, :3],
                        torch.from_numpy(nb).to(cuda)).reshape(-1, 3) \
         .contiguous()
-    return (slab1, sq, sqn), (slab2, iq, iqn)
+
+    return {
+        "K1 scoring": ("gated_min", slab1, sq, sqn, 0.1,
+                       score.SCORE_COS_GATE, False),
+        "K2 ICP": ("nearest_gated", slab2, iq, iqn, 0.1,
+                   icp.cos_gate_of(np.deg2rad(60.0)), False)}
+
+
+def _bound(kind, slab, q, pairs_in_r):
+    """(bound ms, what sets it): the bytes the function must move over
+    HBM3's rate, against the FP32 work of the pairs within r over the FP32
+    peak. Bytes: each query's position and normal read (24 B) and its
+    outputs written (d2 and dot, 8 B; K2 adds the index, 4 B), and each
+    valid slab point's position and normal read (24 B; K2 adds its
+    original index, 4 B). Padding columns and the kernel's own tables
+    (tile and run bounds) are the kernel's choice, not the function's."""
+    m = q.shape[0]
+    k2 = kind == "nearest_gated"
+    bytes_ = m * (24 + (12 if k2 else 8)) + slab.n_valid * (28 if k2 else 24)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs_in_r * FLOP_PER_PAIR / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_kernels(cuda, bench_root) -> dict:
     from rescan_tpu_torch.ops import gnn, icp, score
 
     rng = np.random.default_rng(1)
-    n, m = 200_000, 1_000_000
+    n, m = 200_000, 1_000_003          # no multiple of the 128-query block
     pts = rng.uniform(0, 4, (n, 3)).astype(np.float32)
     pts[n // 2:n // 2 + 5000] = pts[:5000]       # duplicates force ties
     nrm = rng.normal(size=(n, 3)).astype(np.float32)
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     q = rng.uniform(0, 4, (m, 3)).astype(np.float32)
     q = q[gnn.morton_order(q)]   # compact query blocks, as callers make
+    q[-1000:] = gnn.FAR          # the block at m - 1000 mixes real and far
     qn = rng.normal(size=(m, 3)).astype(np.float32)
     qn /= np.linalg.norm(qn, axis=1, keepdims=True)
     qt, qnt = torch.from_numpy(q).to(cuda), torch.from_numpy(qn).to(cuda)
@@ -216,35 +276,77 @@ def phase_kernels(cuda, bench_root) -> dict:
         say("kernels", f"random tile={tile} r={radius} abs={use_abs}: "
             f"{int((p2[0] >= 0).sum())}/{m} found, 0 mismatches")
 
-    (s1, sq, sqn), (s2, iq, iqn) = _bench_queries(cuda, bench_root)
-    sr, sg = 0.1, score.SCORE_COS_GATE
-    k1 = gnn.gated_min(s1, sq, sqn, sr, sg)
-    p1 = gnn.gated_min_ref(s1, sq, sqn, sr, sg)
-    _, e1 = _compare("K1 bench scoring", k1, p1)
-    ir, ig = 0.1, icp.cos_gate_of(np.deg2rad(60.0))
-    k2 = gnn.nearest_gated(s2, iq, iqn, ir, ig)
-    p2 = gnn.nearest_gated_ref(s2, iq, iqn, ir, ig)
-    _, e2 = _compare("K2 bench ICP", k2, p2)
-    err["gated_min"] = max(err["gated_min"], e1)
-    err["nearest_gated"] = max(err["nearest_gated"], e2)
+    launches = _bench_queries(cuda, bench_root)
+    rows = {what: _bench_row(what, *launch)
+            for what, launch in launches.items()}
+    for row in rows.values():
+        err[row["kind"]] = max(err[row["kind"]], row["max_abs_err"])
+    _residency(cuda, launches["K1 scoring"])
+    first = {"gated_min": "K1 scoring", "nearest_gated": "K2 ICP"}
+    return {"err": err, "rows": {k: rows[v] for k, v in first.items()}}
 
-    ms = {"gated_min": cuda_ms(lambda: gnn.gated_min(s1, sq, sqn, sr, sg), 5),
-          "nearest_gated": cuda_ms(
-              lambda: gnn.nearest_gated(s2, iq, iqn, ir, ig), 20)}
-    plain_ms = {
-        "gated_min": cuda_ms(lambda: gnn.gated_min_ref(s1, sq, sqn, sr, sg),
-                             1),
-        "nearest_gated": cuda_ms(
-            lambda: gnn.nearest_gated_ref(s2, iq, iqn, ir, ig), 3)}
-    say("kernels", f"bench K1 scoring launch: {len(sq)} queries on "
-        f"{s1.n_valid} level-1 points, {int(torch.isfinite(p1[0]).sum())} "
-        f"found, 0 mismatches; kernel {ms['gated_min']:.3f} ms, plain "
-        f"{plain_ms['gated_min']:.3f} ms")
-    say("kernels", f"bench K2 ICP launch: {len(iq)} queries on "
-        f"{s2.n_valid} level-2 points, {int((p2[0] >= 0).sum())} found, "
-        f"0 mismatches; kernel {ms['nearest_gated']:.3f} ms, plain "
-        f"{plain_ms['nearest_gated']:.3f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
+               phase="kernels") -> dict:
+    """One launch of the main path's shape: kernel against plain version
+    bit for bit, both timed in turns within this call, the pair counts of
+    the kernel's pruning and the bound; prints one line."""
+    from rescan_tpu_torch.ops import gnn
+    args = (slab, bq, bqn, radius, gate, use_abs)
+    kern = getattr(gnn, kind)
+    plain = getattr(gnn, kind + "_ref")
+    p = plain(*args)
+    _, e = _compare(what, kern(*args), p)
+    # kernel, plain, plain, kernel
+    reps = 3 if bq.shape[0] > 1_000_000 else 10
+    t_k = [cuda_ms(lambda: kern(*args), reps)]
+    t_p = [cuda_ms(lambda: plain(*args), 1)]
+    t_p.append(cuda_ms(lambda: plain(*args), 1))
+    t_k.append(cuda_ms(lambda: kern(*args), reps))
+    c = gnn.pair_counts(*args)
+    bound, by = _bound(kind, slab, bq, c["in_radius"])
+    ms = min(t_k)
+    found = (p[0] >= 0) if kind == "nearest_gated" else torch.isfinite(p[0])
+    say(phase, f"bench {what} launch: {bq.shape[0]} queries on "
+        f"{slab.n_valid} points (tile {slab.tile}, r {radius}), "
+        f"{int(found.sum())} found, 0 mismatches; kernel {ms:.4f} ms "
+        f"(runs {[round(t, 4) for t in t_k]}), plain {min(t_p):.3f} ms; "
+        f"pairs evaluated {c['run_pairs']} (a walk over whole near tiles "
+        f"{c['tile_pairs']}), within r {c['in_radius']}; bound "
+        f"{bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of it")
+    row = {"kind": kind, "queries": int(bq.shape[0]),
+           "slab_points": slab.n_valid, "ms": ms, "ms_runs": t_k,
+           "plain_ms": min(t_p), "plain_ms_runs": t_p, "bound_ms": bound,
+           "bound_by": by, "share_of_bound": bound / ms, "max_abs_err": e,
+           **c}
+    print(json.dumps({"bench_launch": {what: row}}), flush=True)
+    return row
+
+
+def _residency(cuda, launch) -> None:
+    """K1 on the scoring launch at several preferred shared-memory
+    carveouts, each setting how many of its CTAs fit on an SM (read back
+    from the occupancy calculator); the default carveout first and last.
+    Every run is held to the first bit for bit."""
+    from rescan_tpu_torch.ops import gnn
+    kind, slab, bq, bqn, radius, gate, use_abs = launch
+    args = (slab, bq, bqn, radius, gate, use_abs)
+    want = gnn.gated_min(*args)
+    got = []
+    try:
+        for carveout in (-1, 100, 50, 25, 12, -1):
+            info = gnn.kernel_info(False, use_abs, cuda, carveout)
+            _compare(f"K1 at carveout {carveout}", gnn.gated_min(*args),
+                     want)
+            ms = cuda_ms(lambda: gnn.gated_min(*args), 3)
+            got.append({"carveout": carveout,
+                        "ctas_per_sm": info["ctas_per_sm"], "ms": ms})
+    finally:
+        gnn.kernel_info(False, use_abs, cuda, -1)
+    say("kernels", "K1 scoring launch by residency (carveout %, CTAs per "
+        "SM, ms): " + "; ".join(f"{g['carveout']}, {g['ctas_per_sm']}, "
+                                f"{g['ms']:.4f}" for g in got))
+    print(json.dumps({"k1_residency": got}), flush=True)
 
 
 def _run_driver(root: str, class_file: str, devices, profiles=None) -> None:
@@ -314,15 +416,32 @@ def phase_parity(cuda, work: str) -> None:
 
 def phase_slice(cuda, root: str, class_file: str) -> dict:
     from rescan_tpu_torch import sequences
+    from rescan_tpu_torch.ops import search
     profiles = []
+    # the label transfer's K2 calls (ops/labels.py: |dot| gate, the only
+    # caller with use_abs_dot) are recorded and passed on unchanged
+    label_calls = []
+    real = search.nearest_gated
+
+    def record(index, q_pos, q_nrm, radius, cos_gate, use_abs_dot=False):
+        if use_abs_dot:
+            label_calls.append((index, q_pos, q_nrm, radius, cos_gate,
+                                use_abs_dot))
+        return real(index, q_pos, q_nrm, radius, cos_gate,
+                    use_abs_dot=use_abs_dot)
+
+    search.nearest_gated = record
     t0 = time.perf_counter()
-    _, launches, plain = _counted(
-        "slice", "bench sequence",
-        lambda: _run_driver(root, class_file, [cuda], profiles=profiles))
+    try:
+        _, launches, plain = _counted(
+            "slice", "bench sequence",
+            lambda: _run_driver(root, class_file, [cuda], profiles=profiles))
+    finally:
+        search.nearest_gated = real
     wall = time.perf_counter() - t0
     out = sequences.read_outputs(root)
     counts = out["prop_counts"]
-    from rescan_tpu.core import database
+    from rescan_tpu_torch.core import database
     db = database.load_database(
         os.path.join(root, sequences.SEQ_NAME, "scan_000.rsdb"),
         load_pointclouds=False)
@@ -344,7 +463,25 @@ def phase_slice(cuda, root: str, class_file: str) -> dict:
                           p["pose_proposal"].items()},
         "segment_transfer": {k: round(v, 4) for k, v in
                              p["segment_transfer"].items()}}}), flush=True)
+    _label_launches(label_calls)
     return launches, out
+
+
+def _label_launches(calls) -> None:
+    """Phase 5's label-transfer launches (one per placement: the scan
+    points in the placement's bbox, in the object's frame), each held to
+    the plain version bit for bit and measured as phase 3's bench
+    launches are, after the run."""
+    if not calls:
+        raise SystemExit("[slice] FAIL: no label-transfer launch recorded")
+    rows = [_bench_row(f"K2 label transfer {k + 1}/{len(calls)}",
+                       "nearest_gated", *c, phase="slice")
+            for k, c in enumerate(calls)]
+    big = max(range(len(rows)), key=lambda k: rows[k]["queries"])
+    say("slice", f"label transfer: {len(rows)} launches, queries "
+        f"{[r['queries'] for r in rows]}, kernel ms total "
+        f"{sum(r['ms'] for r in rows):.4f}; the largest is launch "
+        f"{big + 1}")
 
 
 def mesh_slots(n: int = 4) -> list:
@@ -429,8 +566,8 @@ def _mesh_bench(work: str, bench_root: str, class_file: str, slots,
 def _mesh_dpsp(bench_root: str, slots) -> None:
     """(c): 2 pairs of a bench object on the bench level-2 slab, pairs over
     dp = 2 and points over sp = 2, against the single-device loop."""
-    from rescan_tpu.core.pointcloud import PointCloud
-    from rescan_tpu.utils import synthetic
+    from rescan_tpu_torch.core.pointcloud import PointCloud
+    from rescan_tpu_torch.utils import synthetic
     from rescan_tpu_torch.ops import gnn, icp, search
     from rescan_tpu_torch.parallel import mesh as pmesh
     from rescan_tpu_torch.sequences import SEQ_NAME
@@ -499,8 +636,8 @@ def _mesh_smoothing(bench_root: str, lead) -> None:
     """(d): the torch engine against the native one on the rescan's
     level-1 graph, from its predicted labels with 10 % of them set to a
     random other label (seeded), both timed."""
-    from rescan_tpu.core import database
-    from rescan_tpu.core.pointcloud import PointCloud
+    from rescan_tpu_torch.core import database
+    from rescan_tpu_torch.core.pointcloud import PointCloud
     from rescan_tpu_torch.ops import labels
     from rescan_tpu_torch.sequences import RESCAN, SEQ_NAME
 
@@ -576,8 +713,13 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": REPLACES, "launches": launches[name],
-                "max_abs_err": kern["err"][name], "ms": kern["ms"][name],
-                "plain_ms": kern["plain_ms"][name]}
+                "max_abs_err": kern["err"][name],
+                "ms": kern["rows"][name]["ms"],
+                "plain_ms": kern["rows"][name]["plain_ms"],
+                "bound_ms": kern["rows"][name]["bound_ms"],
+                "bound_by": kern["rows"][name]["bound_by"],
+                # no PyTorch call gates a nearest neighbour by normal
+                "library_ms": None}
                for name in ("gated_min", "nearest_gated")]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

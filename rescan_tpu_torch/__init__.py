@@ -6,11 +6,15 @@ the rescan timestep (pose_proposal -> segment_transfer, driven by
 a single-process mesh of several (``parallel.mesh``). Its one device kernel,
 the gated nearest-neighbour search, is hand-written CUDA for Hopper
 (``ops/csrc/gnn.cu``) with a plain PyTorch version beside it
-(``ops/gnn.py``). Host code that never imports JAX — ``config``, ``io``,
-``core`` (with the native C++ library), ``ops.{energy,planes,voxel}``,
-``utils``, ``eval`` and the seg2rsdb/create_eval_files/fuse_models
-stages — is imported from ``rescan_tpu``, not copied. This package never
-imports JAX.
+(``ops/gnn.py``). The host code it needs — ``config``, ``io``, ``core``,
+``utils``, ``ops.{energy,planes,voxel}`` and the
+seg2rsdb/create_eval_files/fuse_models stages — is the package's own copy,
+held equal to the JAX package's by tests/test_torch_hostcopy.py. This
+package imports neither JAX nor ``rescan_tpu``. It builds what it runs
+from the repository's sources at first use, into ``rescan_tpu_torch/_build/``:
+the native host library from ``native/rescan_host.cpp`` (g++,
+``core/native.py``) and the CUDA kernel from ``ops/csrc/gnn.cu`` (nvcc,
+``ops/gnn.py``).
 """
 
 import torch

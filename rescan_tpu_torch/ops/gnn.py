@@ -16,7 +16,10 @@ take the plain PyTorch version (``nearest_gated_ref``/``gated_min_ref``).
 Both are bit-identical to the Pallas kernel: same f32 constants, same
 block-bbox tile pruning, the same fused-multiply-add pattern in d2 and
 the normal dot (XLA's compiled arithmetic contracts them, so the
-reference's bits are the fused ones), and the same tie rule.
+reference's bits are the fused ones), and the same tie rule. Inside near
+tiles both prune with the slab's run table (``SortedSlab.run_bounds``,
+the bounds of every RUN-column run), which drops only columns that
+cannot pass d2 < r^2.
 """
 
 from __future__ import annotations
@@ -38,9 +41,14 @@ from .. import resolve_device
 # Far-sentinel coordinate for padding queries/points (pallas_nn.py:118).
 FAR = 1e6
 SCENE_TILE = 2048
-# Queries per pruning block: one CUDA block, and one bbox in the plain
-# version's near-tile test.
+# Queries per pruning block: one CUDA block (a warp with 4 queries per
+# thread), and one bbox in the plain version's near-tile test.
 QUERY_BLOCK = 128
+# Queries per slot (one per lane): the kernel tests each run against the
+# bbox of every slot of the block.
+SLOT = 32
+# Columns per run of the run table (csrc/gnn.cu RUN); tiles are whole runs.
+RUN = 32
 
 # Kernel launches per wrapper, and calls of the plain versions. Callers
 # that need to show which path ran reset them with ``reset_counts``.
@@ -85,17 +93,14 @@ def morton_order(points: np.ndarray, cell: float = 0.2) -> np.ndarray:
 @dataclasses.dataclass
 class SortedSlab:
     """A scene packed for the kernel: Morton-sorted columns cut into
-    tiles, per-tile bounds, and the sort permutation."""
+    tiles, per-tile and per-run bounds, and the sort permutation."""
     slab: torch.Tensor         # (8, N_pad) f32 rows x y z |p|^2 nx ny nz pad
     tile_bounds: torch.Tensor  # (n_tiles, 8) f32: min xyz at 0:3, max at 4:7
     perm: torch.Tensor         # (N_pad,) int32 original index, -1 = padding
     n_valid: int
     center: torch.Tensor       # (3,) f32; columns hold p - center
     tile: int                  # columns per tile
-    # (n_chunks, 6) bounds of CHUNK-column runs, built on demand by the
-    # plain version to prune inside near tiles
-    _chunk_bounds: Optional[torch.Tensor] = dataclasses.field(
-        default=None, repr=False)
+    run_bounds: torch.Tensor   # (N_pad / RUN, 8) f32, as tile_bounds
 
     @property
     def n_tiles(self) -> int:
@@ -105,21 +110,48 @@ class SortedSlab:
     def device(self) -> torch.device:
         return self.slab.device
 
+    def to(self, device) -> "SortedSlab":
+        """This slab with its tensors on ``device``."""
+        if self.device == torch.device(device):
+            return self
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in
+                     ("slab", "tile_bounds", "perm", "center",
+                      "run_bounds")})
+
+
+def run_bounds_of(slab: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """(N_pad / RUN, 8) min xyz (0:3) and max xyz (4:7) of the valid
+    columns of every RUN-column run; FAR for runs of padding."""
+    xyz = slab[0:3].T.reshape(-1, RUN, 3)
+    valid = (perm >= 0).reshape(-1, RUN, 1)
+    lo = torch.where(valid, xyz, FAR).amin(1)
+    hi = torch.where(valid, xyz, -FAR).amax(1)
+    hi = torch.where(valid.any(1), hi, FAR)
+    pad = torch.zeros_like(lo[:, :1])
+    return torch.cat([lo, pad, hi, pad], 1).contiguous()
+
 
 def slab_from_numpy(slab, tile_bounds, perm, n_valid, center, tile: int,
                     device=None) -> SortedSlab:
     """The port's slab on ``device`` (``resolve_device``: cuda unless the
     CPU is named) from a slab's arrays as numpy — the JAX package's
-    ``SortedSlab`` fields, or ``build_sorted_slab``'s."""
+    ``SortedSlab`` fields, or ``build_sorted_slab``'s. The run table is
+    built here, once per slab, on ``device``."""
     dev = resolve_device(device)
+    if int(tile) % RUN:
+        raise ValueError(f"slab tile {tile} is not a multiple of {RUN}")
+    slab_t = torch.tensor(np.asarray(slab, np.float32)).to(dev)
+    perm_t = torch.tensor(np.asarray(perm, np.int32)).to(dev)
     return SortedSlab(
-        slab=torch.tensor(np.asarray(slab, np.float32)).to(dev),
+        slab=slab_t,
         tile_bounds=torch.tensor(np.asarray(tile_bounds,
                                                np.float32)).to(dev),
-        perm=torch.tensor(np.asarray(perm, np.int32)).to(dev),
+        perm=perm_t,
         n_valid=int(n_valid),
         center=torch.tensor(np.asarray(center, np.float32)).to(dev),
-        tile=int(tile))
+        tile=int(tile),
+        run_bounds=run_bounds_of(slab_t, perm_t))
 
 
 def build_sorted_slab(points: np.ndarray, normals: np.ndarray,
@@ -186,11 +218,17 @@ def gate_params(radius, cos_gate) -> Tuple[np.float32, np.float32,
     return r2, radj, thr
 
 
+def run_slack(radj) -> float:
+    """The run test's dilation: radj with a relative and an absolute
+    margin far above f32 rounding, so a run is dropped only when none of
+    its columns can pass d2 < r^2 (held by the tests at exactly r)."""
+    return float(np.float32(float(radj) * 1.0001 + 1e-6))
+
+
 # ---------------------------------------------------------------------------
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-_CHUNK = 32           # columns per sub-tile bounds run (plain version only)
 _NO_KEY = (1 << 62)   # "nothing found" in the packed (d2, column) keys
 
 
@@ -224,42 +262,37 @@ def _gate_exact(nx, ny, nz, sx, sy, sz, use_abs_dot: bool):
     return nd.abs() if use_abs_dot else torch.where(nd > 0, nd, 0.0)
 
 
-def _chunk_bounds(slab: SortedSlab) -> torch.Tensor:
-    """(n_chunks, 6) min/max xyz of the valid columns of every _CHUNK-
-    column run (FAR for runs of padding)."""
-    if slab._chunk_bounds is None:
-        xyz = slab.slab[0:3].T.reshape(-1, _CHUNK, 3)
-        valid = (slab.perm >= 0).reshape(-1, _CHUNK, 1)
-        lo = torch.where(valid, xyz, FAR).amin(1)
-        hi = torch.where(valid, xyz, -FAR).amax(1)
-        hi = torch.where(valid.any(1), hi, FAR)
-        slab._chunk_bounds = torch.cat([lo, hi], 1)
-    return slab._chunk_bounds
-
-
 def _query_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
-               radius, cos_gate, use_abs_dot: bool):
+               radius, cos_gate, use_abs_dot: bool,
+               stats: Optional[dict] = None):
     """Packed (d2 bits << 32 | column) of each query's best, or _NO_KEY.
 
     The near-tile test is the reference's (K3): per QUERY_BLOCK-query
     block, tile bounds against the block bbox dilated by sqrt(r^2), in
-    the same f32 expressions. Inside near tiles, _CHUNK-column runs are
-    skipped when their bounds miss the block bbox by more than r with a
-    relative margin — that never drops a column that could pass
-    d2 < r^2, so the result is the reference's. The surviving (query,
-    column) pairs are screened with a plain f32 d2 against a loose
-    bound, and the few in-radius candidates get the exact fused d2 and
-    gate; a min over the packed keys picks the smallest d2 and, among
-    equal d2, the lowest column."""
+    the same f32 expressions. Inside near tiles, the runs of the run
+    table are skipped when their bounds miss the block bbox by more than
+    ``run_slack`` — that never drops a column that could pass d2 < r^2,
+    so the result is the reference's. The surviving (query, column) pairs
+    are screened with a plain f32 d2 against a loose bound, and the few
+    in-radius candidates get the exact fused d2 and gate; a min over the
+    packed keys picks the smallest d2 and, among equal d2, the lowest
+    column.
+
+    ``stats``: a dict that receives the (query, column) pair counts of
+    this call: ``tile_pairs``, every column of every near tile against
+    every query of the block (the pairs a kernel without run pruning
+    evaluates); ``run_pairs``, every column of every run against every
+    query of each SLOT-query slot of the block whose bbox the run
+    reaches (the pairs the CUDA kernel evaluates); ``in_radius``, the
+    pairs with d2 < r^2."""
     r2, radj, thr = gate_params(radius, cos_gate)
     dev = q_pos.device
     m = q_pos.shape[0]
     best = torch.full((m,), _NO_KEY, dtype=torch.int64, device=dev)
+    if stats is not None:
+        stats.update(tile_pairs=0, run_pairs=0, in_radius=0)
     if m == 0 or slab.n_valid == 0:
         return best
-    if slab.tile % _CHUNK:
-        raise ValueError(f"slab tile {slab.tile} is not a multiple of "
-                         f"{_CHUNK}")
     qc = q_pos - slab.center[None, :]
     nb = -(-m // QUERY_BLOCK)
     pad = nb * QUERY_BLOCK - m
@@ -277,14 +310,27 @@ def _query_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
             & (tb[None, :, 2] <= bmax[:, 2, None] + radj_f)
             & (tb[None, :, 6] >= bmin[:, 2, None] - radj_f))
     pb, pt = near.nonzero(as_tuple=True)
-    cpt = slab.tile // _CHUNK
+    cpt = slab.tile // RUN
     pb = pb.repeat_interleave(cpt)
     pc = (pt[:, None] * cpt + torch.arange(cpt, device=dev)[None]).reshape(-1)
-    cb = _chunk_bounds(slab)[pc]
-    slack = radj_f * 1.0001 + 1e-6
+    cb = slab.run_bounds[pc]
+    slack = run_slack(radj)
     keep = ((cb[:, 0:3] <= bmax[pb] + slack)
-            & (cb[:, 3:6] >= bmin[pb] - slack)).all(1)
+            & (cb[:, 4:7] >= bmin[pb] - slack)).all(1)
     pb, pc, cb = pb[keep], pc[keep], cb[keep]
+    if stats is not None:
+        stats["tile_pairs"] = int((near.sum(1) * qvalid.sum(1)).sum()) \
+            * slab.tile
+        sq = qb.reshape(nb, -1, SLOT, 3)
+        sv = qvalid.reshape(nb, -1, SLOT)
+        smin = torch.where(sv[..., None], sq, torch.inf).amin(2)
+        smax = torch.where(sv[..., None], sq, -torch.inf).amax(2)
+        n_slot = sv.sum(2)
+        for s0 in range(0, len(pb), 1 << 20):
+            b, r = pb[s0:s0 + (1 << 20)], cb[s0:s0 + (1 << 20), None]
+            hit = ((r[..., 0:3] <= smax[b] + slack)
+                   & (r[..., 4:7] >= smin[b] - slack)).all(2)
+            stats["run_pairs"] += int((hit * n_slot[b]).sum()) * RUN
 
     sx, sy, sz = slab.slab[0], slab.slab[1], slab.slab[2]
     snx, sny, snz = slab.slab[4], slab.slab[5], slab.slab[6]
@@ -292,7 +338,7 @@ def _query_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
     qnx, qny, qnz = q_nrm[:, 0], q_nrm[:, 1], q_nrm[:, 2]
     screen = float(r2) * 1.0001
     ar_q = torch.arange(QUERY_BLOCK, device=dev)
-    ar_c = torch.arange(_CHUNK, device=dev)
+    ar_c = torch.arange(RUN, device=dev)
     qbf = qb.reshape(-1, 3)
     qvf = qvalid.reshape(-1)
     step = 65536 if dev.type == "cuda" else 4096
@@ -302,10 +348,10 @@ def _query_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
         run = cb[s0:s0 + step, None, :]
         q3 = qbf[rows]                                             # (P, BQ, 3)
         inq = ((q3 >= run[..., 0:3] - slack)
-               & (q3 <= run[..., 3:6] + slack)).all(-1) & qvf[rows]
+               & (q3 <= run[..., 4:7] + slack)).all(-1) & qvf[rows]
         p_i, q_i = inq.nonzero(as_tuple=True)
         qq = rows[p_i, q_i]                                        # (K,)
-        cols = pc[s0:s0 + step][p_i, None] * _CHUNK + ar_c[None]   # (K, C)
+        cols = pc[s0:s0 + step][p_i, None] * RUN + ar_c[None]      # (K, C)
         dx = qx[qq, None] - sx[cols]
         dy = qy[qq, None] - sy[cols]
         dz = qz[qq, None] - sz[cols]
@@ -316,7 +362,10 @@ def _query_ref(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
         d2 = _d2_exact(qx[qq], qy[qq], qz[qq], sx[cc], sy[cc], sz[cc])
         g = _gate_exact(qnx[qq], qny[qq], qnz[qq], snx[cc], sny[cc],
                         snz[cc], use_abs_dot)
-        ok = (d2 < float(r2)) & (g >= float(thr))
+        inr = d2 < float(r2)
+        if stats is not None:
+            stats["in_radius"] += int(inr.sum())
+        ok = inr & (g >= float(thr))
         key = (d2[ok].view(torch.int32).to(torch.int64) << 32) | cc[ok]
         best.scatter_reduce_(0, qq[ok], key, reduce="amin")
     return best
@@ -364,9 +413,13 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 _lib = None
 _lib_lock = threading.Lock()
+# ptxas's report (registers, shared memory, spills per instantiation) of
+# the build this process ran; empty when the library was already built
+BUILD_LOG = ""
 
 
 def find_nvcc() -> str:
@@ -383,7 +436,7 @@ def find_nvcc() -> str:
 def load_library():
     """Build ``csrc/gnn.cu`` into ``_build/`` (once per source and flag
     set) and load it. Raises with the compiler's stderr on failure."""
-    global _lib
+    global _lib, BUILD_LOG
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -401,18 +454,61 @@ def load_library():
                 raise RuntimeError(f"gnn: nvcc failed ({r.returncode}):\n"
                                    f"{r.stderr}")
             os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        vp, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                             ctypes.c_float)
-        lib.gnn_query.restype = ctypes.c_int
-        lib.gnn_query.argtypes = [vp, vp, i64, vp, i64, vp, i32, i32, vp, vp,
-                                  f32, f32, f32, i32, i32, vp, vp, vp, vp]
-        _lib = lib
-        return lib
+            BUILD_LOG = r.stderr
+        _lib = bind(ctypes.CDLL(out))
+        return _lib
+
+
+def bind(lib):
+    """Declare the C signatures of ``gnn_query`` and ``gnn_kernel_info``
+    on a loaded library."""
+    vp, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
+    lib.gnn_query.restype = ctypes.c_int
+    lib.gnn_query.argtypes = [vp, vp, i64, vp, i64, vp, i32, i32, vp, vp,
+                              vp, f32, f32, f32, f32, i32, i32, vp, vp,
+                              vp, vp]
+    lib.gnn_kernel_info.restype = ctypes.c_int
+    lib.gnn_kernel_info.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    return lib
+
+
+def query_args(slab: SortedSlab, q_pos, q_nrm, radius, cos_gate,
+               use_abs_dot: bool, idx, d2, dot) -> tuple:
+    """``gnn_query``'s arguments but the stream, from tensors already
+    checked by the caller (``idx`` None for K1)."""
+    r2, radj, thr = gate_params(radius, cos_gate)
+    return (q_pos.data_ptr(), q_nrm.data_ptr(), q_pos.shape[0],
+            slab.slab.data_ptr(), slab.slab.shape[1],
+            slab.tile_bounds.data_ptr(), slab.n_tiles, slab.tile,
+            slab.run_bounds.data_ptr(), slab.perm.data_ptr(),
+            slab.center.data_ptr(), float(r2), float(radj), run_slack(radj),
+            float(thr), int(use_abs_dot), int(idx is not None),
+            None if idx is None else idx.data_ptr(), d2.data_ptr(),
+            dot.data_ptr())
+
+
+def kernel_info(want_idx: bool, use_abs_dot: bool, device,
+                carveout: int = -1) -> dict:
+    """Residency of one kernel instantiation on the CUDA ``device``, after
+    setting its preferred shared-memory carveout (percent of the SM's
+    most; -1, the driver's default): CTAs per SM by the occupancy
+    calculator, registers per thread, static shared bytes per CTA, local
+    (spill) bytes per thread."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = lib.gnn_kernel_info(int(want_idx), int(use_abs_dot),
+                                 int(carveout), out)
+    if rc != 0:
+        raise RuntimeError(f"gnn: kernel info failed, cudaError {rc}")
+    return dict(zip(("ctas_per_sm", "registers", "shared_bytes",
+                     "local_bytes"), out))
 
 
 def _launch(slab: SortedSlab, q_pos, q_nrm, radius, cos_gate,
             use_abs_dot: bool, want_idx: bool):
+    """One kernel launch on the queries' device and current stream."""
     dev = q_pos.device
     for name, t in (("q_pos", q_pos), ("q_nrm", q_nrm)):
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 3:
@@ -424,6 +520,14 @@ def _launch(slab: SortedSlab, q_pos, q_nrm, radius, cos_gate,
         raise ValueError(f"gnn: slab on {slab.device}, queries on {dev}")
     if slab.tile_bounds.dtype != torch.float32 or slab.perm.dtype != torch.int32:
         raise ValueError("gnn: slab tensors have the wrong dtypes")
+    if slab.tile % RUN or slab.run_bounds.shape != (slab.slab.shape[1] // RUN,
+                                                    8):
+        raise ValueError("gnn: slab tile or run table does not match RUN")
+    for t in (slab.slab, slab.tile_bounds, slab.run_bounds):
+        # whole 16-byte copies and float4 loads in the kernel
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("gnn: slab tensors must be contiguous and "
+                             "16-byte aligned")
     q_pos = q_pos.contiguous()
     q_nrm = q_nrm.contiguous()
     m = q_pos.shape[0]
@@ -437,20 +541,25 @@ def _launch(slab: SortedSlab, q_pos, q_nrm, radius, cos_gate,
             idx.fill_(-1)
         return idx, d2, dot
     lib = load_library()
-    r2, radj, thr = gate_params(radius, cos_gate)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gnn_query(
-            q_pos.data_ptr(), q_nrm.data_ptr(), m, slab.slab.data_ptr(),
-            slab.slab.shape[1], slab.tile_bounds.data_ptr(), slab.n_tiles,
-            slab.tile, slab.perm.data_ptr(), slab.center.data_ptr(),
-            float(r2), float(radj), float(thr), int(use_abs_dot),
-            int(want_idx), idx.data_ptr() if want_idx else None,
-            d2.data_ptr(), dot.data_ptr(), stream)
+        rc = lib.gnn_query(*query_args(slab, q_pos, q_nrm, radius, cos_gate,
+                                       use_abs_dot, idx, d2, dot), stream)
     if rc != 0:
         raise RuntimeError(f"gnn: kernel launch failed, cudaError {rc}")
     _count(LAUNCHES, "nearest_gated" if want_idx else "gated_min")
     return idx, d2, dot
+
+
+def pair_counts(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
+                radius, cos_gate, use_abs_dot: bool = False) -> dict:
+    """The (query, column) pair counts of one query batch, from the plain
+    version's pruning (see ``_query_ref``): ``tile_pairs``, ``run_pairs``
+    (the pairs the CUDA kernel evaluates) and ``in_radius``. Adds to no
+    launch or call count."""
+    stats = {}
+    _query_ref(slab, q_pos, q_nrm, radius, cos_gate, use_abs_dot, stats)
+    return stats
 
 
 def _check_device(q_pos: torch.Tensor) -> bool:

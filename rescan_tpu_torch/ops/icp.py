@@ -27,8 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from rescan_tpu import config
-
+from .. import config
 from . import gnn, search
 from .reduce import small_matmul, tree_sum
 

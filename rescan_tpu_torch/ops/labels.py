@@ -25,11 +25,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from rescan_tpu import config
-from rescan_tpu.core import native
-from rescan_tpu.io.rsdb import Placement, Rsdb
-
-from .. import resolve_device
+from .. import config, resolve_device
+from ..core import native
+from ..io.rsdb import Placement, Rsdb
 from ..parallel import mesh as pmesh
 from . import gnn, search
 

@@ -20,8 +20,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rescan_tpu import config
-
+from .. import config
 from . import gnn, search
 from .reduce import tree_sum
 

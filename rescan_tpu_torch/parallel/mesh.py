@@ -205,12 +205,7 @@ class Mesh:
 
 def _to_device(obj, dev: torch.device):
     if isinstance(obj, gnn.SortedSlab):
-        if obj.device == dev:
-            return obj
-        return gnn.SortedSlab(slab=obj.slab.to(dev),
-                              tile_bounds=obj.tile_bounds.to(dev),
-                              perm=obj.perm.to(dev), n_valid=obj.n_valid,
-                              center=obj.center.to(dev), tile=obj.tile)
+        return obj.to(dev)
     return torch.as_tensor(obj).to(dev)
 
 

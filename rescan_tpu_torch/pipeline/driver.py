@@ -22,11 +22,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from rescan_tpu.pipeline import create_eval_files, seg2rsdb
-from rescan_tpu.pipeline.fuse_models import fuse_models
-
 from ..parallel import mesh as pmesh
-from . import pose_proposal, segment_transfer
+from . import create_eval_files, pose_proposal, seg2rsdb, segment_transfer
+from .fuse_models import fuse_models
 
 
 def _snap_arrangements_to_text(db) -> None:

@@ -28,13 +28,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from rescan_tpu import config
-from rescan_tpu.core import database
-from rescan_tpu.core.pointcloud import PointCloud
-from rescan_tpu.io import paths, rsdb as rsdbio
-from rescan_tpu.ops import voxel
-
-from ..ops import icp, score, search
+from .. import config
+from ..core import database
+from ..core.pointcloud import PointCloud
+from ..io import paths, rsdb as rsdbio
+from ..ops import icp, score, search, voxel
 from ..parallel import mesh as pmesh
 
 

@@ -32,13 +32,10 @@ from typing import List
 import numpy as np
 import torch
 
-from rescan_tpu import config
-from rescan_tpu.core import database
-from rescan_tpu.io import paths, rsdb as rsdbio
-from rescan_tpu.ops import energy, planes
-
-from .. import resolve_device
-from ..ops import icp, labels as labels_ops, search
+from .. import config, resolve_device
+from ..core import database
+from ..io import paths, rsdb as rsdbio
+from ..ops import energy, icp, labels as labels_ops, planes, search
 from ..parallel import mesh as pmesh
 
 

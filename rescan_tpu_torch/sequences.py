@@ -17,8 +17,8 @@ from typing import Dict, List
 
 import numpy as np
 
-from rescan_tpu.io import ply as plyio, rsdb as rsdbio
-from rescan_tpu.utils import synthetic
+from .io import ply as plyio, rsdb as rsdbio
+from .utils import synthetic
 
 SEQ_NAME = "roomA"
 RESCAN = "scan_001"

@@ -1,0 +1,110 @@
+// Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu
+// uses, so that its kernel logic can be built with g++ and run on the CPU
+// (tests/test_torch_gnn_emulated.py). A block is one warp: 32 std::threads
+// that meet at a barrier for every warp collective; blocks run one after
+// another. cp.async becomes a plain copy; the f32 intrinsics are the host's
+// IEEE operations (fmaf is a correctly rounded fused multiply-add).
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <barrier>
+#include <functional>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __shared__ static
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+
+struct float4 {
+  float x, y, z, w;
+};
+struct dim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+static thread_local dim3 threadIdx;
+static dim3 blockIdx;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// residency means nothing on the host: the queries report zeros
+enum cudaFuncAttribute { cudaFuncAttributePreferredSharedMemoryCarveout };
+struct cudaFuncAttributes {
+  int numRegs;
+  size_t sharedSizeBytes, localSizeBytes;
+};
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*, int,
+                                                                 size_t) {
+  *n = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
+  *a = {};
+  return cudaSuccess;
+}
+
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline float __fsqrt_rn(float a) { return sqrtf(a); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs(v); }
+inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+
+static std::barrier<>* g_warp;
+static unsigned g_ballot;
+static float g_lanes[32];
+
+inline void __syncwarp() { g_warp->arrive_and_wait(); }
+inline unsigned __ballot_sync(unsigned, bool b) {
+  g_warp->arrive_and_wait();
+  if (threadIdx.x == 0) g_ballot = 0;
+  g_warp->arrive_and_wait();
+  if (b) __atomic_fetch_or(&g_ballot, 1u << threadIdx.x, __ATOMIC_SEQ_CST);
+  g_warp->arrive_and_wait();
+  const unsigned r = g_ballot;
+  g_warp->arrive_and_wait();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  g_lanes[threadIdx.x] = v;
+  g_warp->arrive_and_wait();
+  const float r = g_lanes[threadIdx.x ^ o];
+  g_warp->arrive_and_wait();
+  return r;
+}
+inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
+  static unsigned lanes[32];
+  lanes[threadIdx.x] = v;
+  g_warp->arrive_and_wait();
+  const unsigned r = lanes[src];
+  g_warp->arrive_and_wait();
+  return r;
+}
+
+// stands in for kernel<<<grid, 32>>>(...)
+inline void emulate_launch(unsigned grid, const std::function<void()>& body) {
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    std::barrier<> warp(32);
+    g_warp = &warp;
+    std::vector<std::thread> lanes;
+    for (unsigned l = 0; l < 32; ++l)
+      lanes.emplace_back([&body, l] {
+        threadIdx.x = l;
+        body();
+      });
+    for (auto& t : lanes) t.join();
+  }
+}

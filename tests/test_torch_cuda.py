@@ -23,6 +23,65 @@ def cuda():
     return torch.device("cuda")
 
 
+# the distances of the edge-case slab: r, and the largest f32 below r
+EDGE_R = 0.125
+EDGE_IN = float(np.float32(1.125) - np.float32(2.0 ** -23)) - 1.0
+
+
+def edge_slab(mixed: bool):
+    """A slab laid out by hand (centre 0, tile 1024 = 32 runs of 32) whose
+    columns sit on run boundaries at distance r or just inside it from the
+    query point (the origin), with every other column of their runs
+    farther out, so a run test without its margin drops them:
+
+    - column 32, first of run 1: (r, 0, 0), d2 == r^2 exactly (not < r^2);
+      the run's other columns lie at x > r, so its min x is r;
+    - column 95, last of run 2: (-EDGE_IN, 0, 0), d2 < r^2, the answer;
+      the run's other columns at x < -r, so its max x is -EDGE_IN;
+    - column 96, first of run 3: (0, 0, EDGE_IN), the same d2 (a tie the
+      lower column wins);
+    - column 1024, first of tile 2: a duplicate of column 95, in a run
+      laid out like run 2.
+
+    Returns the slab's arrays (slab, tile_bounds, perm, n_valid, center,
+    tile) and queries (pos, nrm): 133 at the origin (not a multiple of
+    the 128-query block), or with ``mixed`` queries 100-127 at FAR so one
+    block mixes real and padding queries."""
+    tile, n_pad = 1024, 2048
+    rng = np.random.default_rng(17)
+    xyz = np.full((n_pad, 3), gnn.FAR, np.float32)
+    nrm = np.zeros((n_pad, 3), np.float32)
+    perm = np.full(n_pad, -1, np.int32)
+    valid = np.r_[0:700, 1024:1500]
+    far = rng.uniform(0.3, 1.0, (len(valid), 3)) * rng.choice([-1, 1], (
+        len(valid), 3))
+    xyz[valid] = far.astype(np.float32)
+    nrm[valid] = [0, 1, 0]
+    perm[valid] = np.arange(len(valid), dtype=np.int32)[::-1]
+    xyz[33:64] = np.c_[np.linspace(0.13, 0.2, 31), np.zeros((31, 2))]
+    xyz[64:95] = np.c_[-np.linspace(0.2, 0.13, 31), np.zeros((31, 2))]
+    xyz[97:128] = np.c_[np.zeros((31, 2)), np.linspace(0.13, 0.2, 31)]
+    xyz[32] = [EDGE_R, 0, 0]
+    xyz[95] = [-EDGE_IN, 0, 0]
+    xyz[96] = [0, 0, EDGE_IN]
+    xyz[1024] = xyz[95]
+    xyz[1025:1056] = xyz[64:95]
+    slab = np.zeros((8, n_pad), np.float32)
+    slab[0:3] = xyz.T
+    slab[3] = np.where(perm >= 0, (xyz * xyz).sum(1), 3e12)
+    slab[4:7] = nrm.T
+    tb = np.zeros((2, 8), np.float32)
+    for t in range(2):
+        v = perm[t * tile:(t + 1) * tile] >= 0
+        c = xyz[t * tile:(t + 1) * tile][v]
+        tb[t, 0:3], tb[t, 4:7] = c.min(0), c.max(0)
+    q = np.zeros((133, 3), np.float32)
+    if mixed:
+        q[100:128] = gnn.FAR
+    qn = np.tile(np.float32([0, 1, 0]), (len(q), 1))
+    return (slab, tb, perm, len(valid), np.zeros(3, np.float32), tile), q, qn
+
+
 def _fixture(seed, n, m):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(0, 2, (n, 3)).astype(np.float32)
@@ -112,4 +171,56 @@ def test_mesh_launches_match_single(cuda, n_slots):
     assert (want[0] >= 0).sum() > 100
     for a, b in zip(got, want):
         assert a.device == devs[0]
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_kernel_keeps_columns_at_r_on_run_boundaries(cuda, mixed):
+    """The hand-laid slab of ``edge_slab``: kernel and plain version bit
+    for bit, every origin query finds column 95 just inside r."""
+    arrays, q, qn = edge_slab(mixed)
+    slab = gnn.slab_from_numpy(*arrays, device=cuda)
+    qt, qnt = torch.from_numpy(q).to(cuda), torch.from_numpy(qn).to(cuda)
+    for use_abs, gate in ((False, 0.5), (True, -1.0)):
+        k = gnn.nearest_gated(slab, qt, qnt, EDGE_R, gate, use_abs)
+        k1 = gnn.gated_min(slab, qt, qnt, EDGE_R, gate, use_abs)
+        p = gnn.nearest_gated_ref(slab, qt, qnt, EDGE_R, gate, use_abs)
+        real = q[:, 0] == 0
+        assert (p[0].cpu().numpy()[real] == arrays[2][95]).all()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        for a, b in zip(k1, p[1:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("want_idx", [False, True])
+@pytest.mark.parametrize("use_abs_dot", [False, True])
+def test_kernel_resides_without_spills(cuda, want_idx, use_abs_dot):
+    """Every instantiation keeps its state in registers and shared memory
+    (no local memory) and fits at least 16 CTAs on an SM, its launch
+    bound."""
+    info = gnn.kernel_info(want_idx, use_abs_dot, cuda)
+    assert info["local_bytes"] == 0
+    assert info["ctas_per_sm"] >= 16
+    assert 0 < info["registers"] <= 128
+
+
+def test_kernel_far_from_the_slab_centre(cuda):
+    """Queries up to 30 m from the slab centre, where an f32 rounding of
+    |q - p|^2 is far larger than at the origin."""
+    rng = np.random.default_rng(4)
+    n = 200_000
+    pts = np.c_[rng.uniform(0, 60, n), rng.uniform(0, 0.5, (n, 2))].astype(
+        np.float32)
+    pts[n // 2:n // 2 + 5000] = pts[:5000]
+    nrm = np.tile(np.float32([0, 1, 0]), (n, 1))
+    q = (pts[::4] + rng.normal(0, 0.03, (n // 4, 3))).astype(np.float32)
+    q = q[gnn.morton_order(q)]
+    slab = gnn.build_sorted_slab(pts, nrm, tile=1024, device=cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    qnt = torch.from_numpy(nrm[:len(q)]).to(cuda)
+    k = gnn.nearest_gated(slab, qt, qnt, 0.1, 0.5)
+    p = gnn.nearest_gated_ref(slab, qt, qnt, 0.1, 0.5)
+    assert (p[0] >= 0).sum() > 0.9 * len(q)
+    for a, b in zip(k, p):
         assert torch.equal(a, b)

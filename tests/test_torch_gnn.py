@@ -14,6 +14,7 @@ import torch
 
 from rescan_tpu.ops import pallas_nn
 from rescan_tpu_torch.ops import gnn, icp as ticp, score as tscore
+from test_torch_cuda import EDGE_IN, EDGE_R, edge_slab
 
 COS35 = float(np.cos(np.deg2rad(np.float32(35.0))))
 COS60 = float(np.cos(np.float32(np.deg2rad(60.0))))
@@ -155,3 +156,61 @@ def test_unsupported_device_raises():
     with pytest.raises(ValueError):
         gnn.nearest_gated(slab, torch.from_numpy(q).to("meta"),
                           torch.from_numpy(qn).to("meta"), 0.1, 0.5)
+
+
+def test_run_table_is_shared():
+    """One run table per slab, built with it on its device: the bounds of
+    each run's valid columns (FAR for runs of padding), and the plain
+    version prunes with exactly that table."""
+    pts, nrm, q, qn = _data(2, n=2500, m=300)
+    slab = gnn.build_sorted_slab(pts, nrm, tile=1024, device="cpu")
+    rb = slab.run_bounds.numpy()
+    xyz = slab.slab[0:3].numpy().T.reshape(-1, gnn.RUN, 3)
+    valid = (slab.perm.numpy() >= 0).reshape(-1, gnn.RUN)
+    assert rb.shape == (slab.slab.shape[1] // gnn.RUN, 8)
+    for r in range(len(rb)):
+        if valid[r].any():
+            np.testing.assert_array_equal(rb[r, 0:3], xyz[r][valid[r]].min(0))
+            np.testing.assert_array_equal(rb[r, 4:7], xyz[r][valid[r]].max(0))
+        else:
+            assert (rb[r, [0, 1, 2, 4, 5, 6]] == gnn.FAR).all()
+    assert (~valid).all(1).any()        # the fixture has padding runs
+    qt, qnt = torch.from_numpy(q), torch.from_numpy(qn)
+    assert (gnn.nearest_gated(slab, qt, qnt, 0.1, 0.5)[0] >= 0).any()
+    slab.run_bounds = torch.full_like(slab.run_bounds, gnn.FAR)
+    assert (gnn.nearest_gated(slab, qt, qnt, 0.1, 0.5)[0] == -1).all()
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("use_abs_dot,cos_gate", [(False, 0.5), (True, -1.0)])
+def test_run_pruning_keeps_columns_at_r(mixed, use_abs_dot, cos_gate,
+                                        monkeypatch):
+    """Columns exactly at r and just inside it, each on the boundary of its
+    run (test_torch_cuda.edge_slab): the plain version is the Pallas
+    kernel's bit for bit and finds the column just inside r (the lowest
+    of a tie); with the run test's margin taken away it drops that run,
+    so the fixture sees over-pruning."""
+    (sl, tb, perm, n_valid, center, tile), q, qn = edge_slab(mixed)
+    js = pallas_nn.SortedSlab(jnp.asarray(sl), jnp.asarray(tb),
+                              jnp.asarray(perm), n_valid, jnp.asarray(center),
+                              n_tiles=len(tb), tile=tile)
+    ji, jd2, jdot = pallas_nn.nearest_gated_pallas(
+        js, jnp.asarray(q), jnp.asarray(qn), EDGE_R, cos_gate,
+        use_abs_dot=use_abs_dot, bq=128)
+    slab = gnn.slab_from_numpy(sl, tb, perm, n_valid, center, tile,
+                               device="cpu")
+    qt, qnt = torch.from_numpy(q), torch.from_numpy(qn)
+    ti, td2, tdot = gnn.nearest_gated(slab, qt, qnt, EDGE_R, cos_gate,
+                                      use_abs_dot)
+    _same_bits(ji, ti.numpy())
+    _same_bits(jd2, td2.numpy())
+    _same_bits(jdot, tdot.numpy())
+    real = q[:, 0] == 0
+    assert (ti.numpy()[real] == perm[95]).all()
+    assert (ti.numpy()[~real] == -1).all()
+    d = np.float32(EDGE_IN)
+    assert (td2.numpy()[real] == np.float32(d * d)).all()
+    assert np.float32(EDGE_R) ** 2 == gnn.gate_params(EDGE_R, 0)[0]
+    monkeypatch.setattr(gnn, "run_slack", lambda radj: float(radj) * 0.99999)
+    tight = gnn.nearest_gated(slab, qt, qnt, EDGE_R, cos_gate, use_abs_dot)
+    assert (tight[0].numpy()[real] == -1).all()

@@ -2,17 +2,25 @@
 against the JAX package's, on the scene of tests/test_labels_unit.py."""
 
 import copy
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from rescan_tpu import config
-from rescan_tpu.core.pointcloud import PointCloud
-from rescan_tpu.io.rsdb import Placement, RsObject, Rsdb, RsScene
 from rescan_tpu.ops import labels as jlabels
 from rescan_tpu.utils import synthetic
 from rescan_tpu_torch.ops import labels as tlabels
+
+# Each package's inputs are built with its own io and data model, from the
+# same files and arrays: a port function never gets a JAX-package object.
+PKGS = ("rescan_tpu", "rescan_tpu_torch")
+
+
+def _io(pkg):
+    return (importlib.import_module(f"{pkg}.core.pointcloud").PointCloud,
+            importlib.import_module(f"{pkg}.io.rsdb"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,24 +53,31 @@ def room(tmp_path_factory):
         ("table", (1.1, 1.0), (0.5, 0.4, 0.35), 0.0)])
     path = str(d / "scene.ply")
     synthetic.save_scene_ply(path, spec, resolution=6)
-    scene = PointCloud.from_ply(path)
-    db = Rsdb()
-    db.class_table = {n: i for i, n in enumerate(synthetic.NYU40_CLASSES)}
-    L0 = scene.levels[0]
-    arr = []
-    for uid, pose in ((3, _shift(0.01, -0.005, 0.02)), (4, _shift(0, 0)),
-                      (1, _shift(0, 0)), (0, _shift(0, 0))):
-        sel = L0["instance_ids"] == uid
-        cls = int(np.bincount(L0["class_ids"][sel]).argmax())
-        sub = scene.extract_by_ids(0, "instance_ids", [uid],
-                                   compute_levels=True)
-        db.objects.append(RsObject(uidx=uid, filename=f"o{uid}.ply",
-                                   class_idx=cls, cloud=sub))
-        arr.append(Placement(uid, 0, len(db.objects) - 1, 0, pose, 0.9))
-    db.scenes.append(RsScene(uidx=0, arrangement_idx=0, scn_filename=path,
-                             cloud=scene))
-    assert any(db.is_object_static(i) for i in range(len(db.objects)))
-    return db, scene, arr
+    out = {}
+    for pkg in PKGS:
+        PointCloud, rs = _io(pkg)
+        scene = PointCloud.from_ply(path)
+        db = rs.Rsdb()
+        db.class_table = {n: i for i, n in
+                          enumerate(synthetic.NYU40_CLASSES)}
+        L0 = scene.levels[0]
+        arr = []
+        for uid, pose in ((3, _shift(0.01, -0.005, 0.02)),
+                          (4, _shift(0, 0)), (1, _shift(0, 0)),
+                          (0, _shift(0, 0))):
+            sel = L0["instance_ids"] == uid
+            cls = int(np.bincount(L0["class_ids"][sel]).argmax())
+            sub = scene.extract_by_ids(0, "instance_ids", [uid],
+                                       compute_levels=True)
+            db.objects.append(rs.RsObject(uidx=uid, filename=f"o{uid}.ply",
+                                          class_idx=cls, cloud=sub))
+            arr.append(rs.Placement(uid, 0, len(db.objects) - 1, 0, pose,
+                                    0.9))
+        db.scenes.append(rs.RsScene(uidx=0, arrangement_idx=0,
+                                    scn_filename=path, cloud=scene))
+        assert any(db.is_object_static(i) for i in range(len(db.objects)))
+        out[pkg] = db, scene, arr
+    return out
 
 
 @pytest.mark.parametrize("which", ["dynamic_only", "with_static"])
@@ -72,13 +87,13 @@ def test_arrangement_to_labels_matches_jax(room, which):
     the radius, then gate its |dot| at 70 degrees. With no static
     placement the 1.5x static pass covers every placement (the quirk at
     labels.py:83-85)."""
-    db, scene, arr = room
-    arr = arr[:2] if which == "dynamic_only" else arr
-    sj, st = copy.deepcopy(scene), copy.deepcopy(scene)
-    jlabels.arrangement_to_labels(db, sj, arr)
-    tlabels.arrangement_to_labels(db, st, arr, device="cpu")
+    (dj, sj, aj), (dt, st, at) = room["rescan_tpu"], room["rescan_tpu_torch"]
+    n = 2 if which == "dynamic_only" else len(aj)
+    sj, st = copy.deepcopy(sj), copy.deepcopy(st)
+    jlabels.arrangement_to_labels(dj, sj, aj[:n])
+    tlabels.arrangement_to_labels(dt, st, at[:n], device="cpu")
     lj, lt = sj.levels[config.LABEL_LVL], st.levels[config.LABEL_LVL]
-    assert len(np.unique(lt["instance_ids"])) == len(arr) + 1
+    assert len(np.unique(lt["instance_ids"])) == n + 1
     np.testing.assert_array_equal(lt["class_ids"], lj["class_ids"])
     np.testing.assert_array_equal(lt["instance_ids"], lj["instance_ids"])
 
@@ -87,9 +102,8 @@ def test_smoothing_graph_matches_jax(room):
     """The port builds the graph on the native HostGrid; the JAX
     package's CPU branch uses hashgrid.radius_knn. Same edges, same
     weights."""
-    _, scene, _ = room
-    ej, wj = jlabels.build_smoothing_graph(scene)
-    et, wt = tlabels.build_smoothing_graph(scene)
+    ej, wj = jlabels.build_smoothing_graph(room["rescan_tpu"][1])
+    et, wt = tlabels.build_smoothing_graph(room["rescan_tpu_torch"][1])
     oj = np.lexsort((ej[:, 1], ej[:, 0]))
     ot = np.lexsort((et[:, 1], et[:, 0]))
     np.testing.assert_array_equal(et[ot], ej[oj])
@@ -101,13 +115,13 @@ def test_smooth_labels_matches_jax(room, engine):
     """Each engine against the JAX package's engine of the same name;
     ``jax`` is the port's torch mean-field + ICM engine, run on the
     CPU."""
-    db, scene, arr = room
-    sj, st = copy.deepcopy(scene), copy.deepcopy(scene)
-    jlabels.arrangement_to_labels(db, sj, arr)
-    tlabels.arrangement_to_labels(db, st, arr, device="cpu")
+    (dj, sj, aj), (dt, st, at) = room["rescan_tpu"], room["rescan_tpu_torch"]
+    sj, st = copy.deepcopy(sj), copy.deepcopy(st)
+    jlabels.arrangement_to_labels(dj, sj, aj)
+    tlabels.arrangement_to_labels(dt, st, at, device="cpu")
     before = st.levels[config.LABEL_LVL]["instance_ids"].copy()
-    jlabels.smooth_labels(db, sj, engine=engine)
-    tlabels.smooth_labels(db, st, engine=engine, device="cpu")
+    jlabels.smooth_labels(dj, sj, engine=engine)
+    tlabels.smooth_labels(dt, st, engine=engine, device="cpu")
     lj, lt = sj.levels[config.LABEL_LVL], st.levels[config.LABEL_LVL]
     np.testing.assert_array_equal(lt["class_ids"], lj["class_ids"])
     np.testing.assert_array_equal(lt["instance_ids"], lj["instance_ids"])
@@ -115,7 +129,7 @@ def test_smooth_labels_matches_jax(room, engine):
 
 
 def test_unknown_smoothing_engine_raises(room):
-    db, scene, _ = room
+    db, scene, _ = room["rescan_tpu_torch"]
     with pytest.raises(ValueError, match="unknown smoothing engine"):
         tlabels.smooth_labels(db, copy.deepcopy(scene), engine="gco")
 
@@ -123,7 +137,7 @@ def test_unknown_smoothing_engine_raises(room):
 def test_smooth_engine_env_selects_torch(room, monkeypatch):
     """RESCAN_SMOOTH_ENGINE=jax selects the torch engine, as it selects
     the JAX engine in the JAX package; engine="torch" is the same."""
-    db, scene, arr = room
+    db, scene, arr = room["rescan_tpu_torch"]
     st = copy.deepcopy(scene)
     tlabels.arrangement_to_labels(db, st, arr, device="cpu")
     a, b = copy.deepcopy(st), copy.deepcopy(st)
@@ -136,9 +150,11 @@ def test_smooth_engine_env_selects_torch(room, monkeypatch):
                                       b.levels[config.LABEL_LVL][k])
 
 
-def _random_label_cloud(seed):
+def _random_label_cloud(seed, pkg="rescan_tpu_torch"):
     """tests/test_energy_labels.py's cross-engine cloud: 600 points in a
-    0.4 m cube, random normals, 4 random instance labels."""
+    0.4 m cube, random normals, 4 random instance labels, built with
+    ``pkg``'s data model."""
+    PointCloud, rs = _io(pkg)
     rng = np.random.default_rng(seed)
     n = 600
     pts = rng.random((n, 3), dtype=np.float32) * 0.4
@@ -153,7 +169,7 @@ def _random_label_cloud(seed):
         "class_ids": np.full(n, 5, np.int32),
         "instance_ids": init}, compute_levels=True)
     cloud.levels[1] = {k: v.copy() for k, v in cloud.levels[0].items()}
-    db = Rsdb()
+    db = rs.Rsdb()
     db.class_table = {n_: i for i, n_ in enumerate(synthetic.NYU40_CLASSES)}
     return db, cloud
 
@@ -187,9 +203,10 @@ def test_torch_engine_agrees_with_jax_on_random_labels(seed):
     with the JAX engine of at least 0.995 (the JAX package's own
     cross-engine bar), and a Potts energy at most the JAX engine's
     plus 1 %."""
+    dj, sj = _random_label_cloud(seed, "rescan_tpu")
     db, cloud = _random_label_cloud(seed)
-    sj, st = copy.deepcopy(cloud), copy.deepcopy(cloud)
-    jlabels.smooth_labels(db, sj, engine="jax")
+    st = copy.deepcopy(cloud)
+    jlabels.smooth_labels(dj, sj, engine="jax")
     tlabels.smooth_labels(db, st, engine="torch", device="cpu")
     lj, lt = sj.levels[1], st.levels[1]
     assert (lt["instance_ids"] != cloud.levels[1]["instance_ids"]).mean() \
@@ -203,11 +220,12 @@ def test_torch_engine_agrees_with_jax_on_random_labels(seed):
 def test_torch_engine_energy_on_room(room):
     """On the room fixture, the torch engine's Potts energy is at most
     the JAX engine's plus 1 %, and below the transferred labels'."""
-    db, scene, arr = room
-    st = copy.deepcopy(scene)
+    (dj, sj, aj), (db, st, arr) = room["rescan_tpu"], room["rescan_tpu_torch"]
+    sj, st = copy.deepcopy(sj), copy.deepcopy(st)
+    jlabels.arrangement_to_labels(dj, sj, aj)
     tlabels.arrangement_to_labels(db, st, arr, device="cpu")
-    sj, sn = copy.deepcopy(st), copy.deepcopy(st)
-    jlabels.smooth_labels(db, sj, engine="jax")
+    sn = copy.deepcopy(st)
+    jlabels.smooth_labels(dj, sj, engine="jax")
     tlabels.smooth_labels(db, sn, engine="torch", device="cpu")
     e_t = _potts(db, st, sn)
     assert e_t <= 1.01 * _potts(db, st, sj)

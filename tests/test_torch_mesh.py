@@ -14,12 +14,14 @@ import torch
 
 from rescan_tpu import config
 from rescan_tpu.core.pointcloud import PointCloud
-from rescan_tpu.io.rsdb import Placement, RsObject, Rsdb, RsScene
+from rescan_tpu.io import rsdb as jrsdb
 from rescan_tpu.ops import hashgrid, icp as jicp, labels as jlabels, pallas_nn
 from rescan_tpu.parallel import mesh as jmesh
 from rescan_tpu.pipeline import pose_proposal as jpp
 from rescan_tpu.utils import synthetic
 from rescan_tpu_torch import sequences
+from rescan_tpu_torch.core.pointcloud import PointCloud as TPointCloud
+from rescan_tpu_torch.io import rsdb as trsdb
 from rescan_tpu_torch.ops import gnn, icp as ticp, labels as tlabels
 from rescan_tpu_torch.ops import score as tscore
 from rescan_tpu_torch.parallel import mesh as tmesh
@@ -405,13 +407,19 @@ def test_propose_poses_for_object_with_mesh(tmp_path):
                                          (0.3, 0.4, 0.3), 0.0)])
     ply = str(tmp_path / "scene.ply")
     synthetic.save_scene_ply(ply, spec, resolution=5)
-    scene = PointCloud.from_ply(ply)
+    # each package reads the scene with its own io
+    scene_j, scene = PointCloud.from_ply(ply), TPointCloud.from_ply(ply)
     obj = scene.extract_by_ids(0, "instance_ids", [3], compute_levels=True)
+    obj_j = scene_j.extract_by_ids(0, "instance_ids", [3],
+                                   compute_levels=True)
     slvl = config.SCORE_SEARCH_LVL
     js, slab = _slab_pair(scene.pos(slvl), scene.nrm(slvl), tile=2048)
     occ = tpp.SceneOccupancy(scene.pos(slvl),
                              config.SCORE_SEARCH_RADII[slvl],
                              scene_nrm=scene.nrm(slvl))
+    occ_j = jpp.SceneOccupancy(scene_j.pos(slvl),
+                               config.SCORE_SEARCH_RADII[slvl],
+                               scene_nrm=scene_j.nrm(slvl))
     p_1, s_1 = tpp.propose_poses_for_object(obj, slab, scene.bbox,
                                             occupancy=occ)
     p_m, s_m = tpp.propose_poses_for_object(
@@ -420,8 +428,8 @@ def test_propose_poses_for_object_with_mesh(tmp_path):
     assert len(p_1) > 0
     np.testing.assert_array_equal(p_m, p_1)
     np.testing.assert_array_equal(s_m, s_1)
-    p_j, s_j = jpp.propose_poses_for_object(obj, js, scene.bbox,
-                                            occupancy=occ)
+    p_j, s_j = jpp.propose_poses_for_object(obj_j, js, scene_j.bbox,
+                                            occupancy=occ_j)
     assert len(p_m) == len(p_j)
     np.testing.assert_allclose(p_m, p_j, atol=1e-6)
     np.testing.assert_allclose(s_m, s_j, atol=1e-5)
@@ -436,28 +444,35 @@ def test_label_transfer_sharded(tmp_path):
         ("table", (1.1, 1.1), (0.4, 0.35, 0.3), 0.2)])
     ply = str(tmp_path / "scene.ply")
     synthetic.save_scene_ply(ply, spec, resolution=6)
-    scene = PointCloud.from_ply(ply)
-    db = Rsdb()
-    db.class_table = {n: i for i, n in enumerate(synthetic.NYU40_CLASSES)}
-    arr = []
-    for k, uidx in enumerate((3, 4, 0)):
-        sub = scene.extract_by_ids(0, "instance_ids", [uidx],
-                                   compute_levels=True)
-        db.objects.append(RsObject(uidx=uidx, filename=f"o{uidx}.ply",
-                                   class_idx=5 + k, cloud=sub))
-        pose = np.eye(4, dtype=np.float32)
-        pose[0, 3] = 0.01 * k
-        arr.append(Placement(uidx, 0, k, 0, pose, 0.9))
-    db.scenes.append(RsScene(uidx=0, arrangement_idx=0, scn_filename=ply,
-                             cloud=scene))
+
+    def build(Cloud, rs):
+        """The database, scene and arrangement in one package's model."""
+        scene = Cloud.from_ply(ply)
+        db = rs.Rsdb()
+        db.class_table = {n: i for i, n in
+                          enumerate(synthetic.NYU40_CLASSES)}
+        arr = []
+        for k, uidx in enumerate((3, 4, 0)):
+            sub = scene.extract_by_ids(0, "instance_ids", [uidx],
+                                       compute_levels=True)
+            db.objects.append(rs.RsObject(uidx=uidx, filename=f"o{uidx}.ply",
+                                          class_idx=5 + k, cloud=sub))
+            pose = np.eye(4, dtype=np.float32)
+            pose[0, 3] = 0.01 * k
+            arr.append(rs.Placement(uidx, 0, k, 0, pose, 0.9))
+        db.scenes.append(rs.RsScene(uidx=0, arrangement_idx=0,
+                                    scn_filename=ply, cloud=scene))
+        return db, scene, arr
+
+    db, scene, arr = build(TPointCloud, trsdb)
+    db_j, sj, arr_j = build(PointCloud, jrsdb)
     out = {}
     for name, kw in (("single", {}),
                      ("mesh", {"mesh": tmesh.make_flat_mesh(devices=CPU8)})):
         s = copy.deepcopy(scene)
         tlabels.arrangement_to_labels(db, s, arr, device="cpu", **kw)
         out[name] = s.levels[config.LABEL_LVL]
-    sj = copy.deepcopy(scene)
-    jlabels.arrangement_to_labels(db, sj, arr)
+    jlabels.arrangement_to_labels(db_j, sj, arr_j)
     lj = sj.levels[config.LABEL_LVL]
     assert len(np.unique(out["mesh"]["instance_ids"])) == len(arr) + 1
     for k in ("class_ids", "instance_ids"):

@@ -1,8 +1,11 @@
-"""The port imports no JAX, builds its kernel only with nvcc and never
-falls back; and its copies of the JAX package's numpy helpers give the
-originals' outputs."""
+"""The port imports neither JAX nor the JAX package, builds its kernel
+only with nvcc and never falls back; and its copies of the JAX package's
+numpy helpers give the originals' outputs."""
 
+import ast
 import copy
+import glob
+import importlib
 import os
 import subprocess
 import sys
@@ -11,8 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from rescan_tpu.core.pointcloud import PointCloud
-from rescan_tpu.io.rsdb import Placement, RsObject, Rsdb, RsScene
 from rescan_tpu.pipeline import pose_proposal as jpp
 from rescan_tpu.pipeline import segment_transfer as jst
 from rescan_tpu.utils import synthetic
@@ -55,22 +56,71 @@ Tm, _ = mesh.icp_refine_indexed_dpsp(m, index, pb, nb, mb, [0], [True],
                                      np.deg2rad(60.0))
 assert np.array_equal(sm, s), (sm, s)
 assert np.array_equal(Tm, T.numpy()), (Tm, T)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+from rescan_tpu_torch.core import native
+from rescan_tpu_torch.pipeline import create_eval_files, seg2rsdb
+assert native._load()._name == native.library_path(), native._load()._name
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "rescan_tpu" or m.startswith("rescan_tpu."))
+assert not loaded, loaded
 print("NOJAX_OK")
 """
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter without JAX_PLATFORMS (which would make
-    rescan_tpu/__init__ import JAX), every port module imports, the mesh
-    module included, and the CPU path scores and aligns, on one device
-    and on a CPU mesh, without JAX being loaded."""
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    """In a fresh interpreter with JAX_PLATFORMS=cpu kept (under which
+    rescan_tpu/__init__ would import JAX), every port module imports, the
+    mesh module and the copied stages included, and the CPU path scores
+    and aligns, on one device and on a CPU mesh, with neither JAX nor any
+    module of the JAX package loaded, and the native library loaded from
+    the port's own build."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX_OK" in r.stdout
+
+
+def _imports_of_jax_package(path):
+    """(line, module) of every import of rescan_tpu or jax in a file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names
+                if n.split(".")[0] in ("rescan_tpu", "jax")]
+    return bad
+
+
+def test_port_sources_import_no_jax_package():
+    """No module of the port, and not chip_smoke.py, imports rescan_tpu
+    (or JAX), at the top or inside a function."""
+    files = sorted(glob.glob(os.path.join(ROOT, "rescan_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    found = {os.path.relpath(f, ROOT): _imports_of_jax_package(f)
+             for f in files}
+    assert not {f: b for f, b in found.items() if b}
+
+
+def test_import_scan_sees_every_form(tmp_path):
+    """The scan above catches each way of writing such an import."""
+    path = tmp_path / "m.py"
+    path.write_text("import rescan_tpu\nimport rescan_tpu.io.ply as p\n"
+                    "from rescan_tpu.core import native\n"
+                    "from rescan_tpu import x\n"
+                    "def f():\n    import jax.numpy\n"
+                    "from . import config\nimport rescan_tpu_torch\n")
+    assert [n for _, n in _imports_of_jax_package(str(path))] == [
+        "rescan_tpu", "rescan_tpu.io.ply", "rescan_tpu.core", "rescan_tpu",
+        "jax.numpy"]
 
 
 def test_kernel_loader_without_nvcc_raises(tmp_path, monkeypatch):
@@ -101,20 +151,14 @@ def test_default_device_without_card_raises():
         rescan_tpu_torch.resolve_device()
 
 
-@pytest.fixture(scope="module")
-def room_db(tmp_path_factory):
-    """The small room as a database: chair, table, wall and floor objects,
-    the rescan as scene 1 with proposals for every object, and a scene-0
-    arrangement."""
-    d = tmp_path_factory.mktemp("helpers")
-    spec = synthetic.SceneSpec(room_size=(1.6, 1.6), wall_height=0.9,
-                               objects=[
-        ("chair", (0.45, 0.45), (0.35, 0.5, 0.35), 0.0),
-        ("table", (1.1, 1.0), (0.5, 0.4, 0.35), 0.0)])
-    path = str(d / "scene.ply")
-    synthetic.save_scene_ply(path, spec, resolution=6)
+def _room_db(pkg, path):
+    """The small room as a database in ``pkg``'s data model, read with its
+    own io: chair, table, wall and floor objects, the rescan as scene 1
+    with proposals for every object, and a scene-0 arrangement."""
+    PointCloud = importlib.import_module(f"{pkg}.core.pointcloud").PointCloud
+    rs = importlib.import_module(f"{pkg}.io.rsdb")
     scene = PointCloud.from_ply(path)
-    db = Rsdb()
+    db = rs.Rsdb()
     db.class_table = {n: i for i, n in enumerate(synthetic.NYU40_CLASSES)}
     L0 = scene.levels[0]
     rng = np.random.default_rng(9)
@@ -124,36 +168,53 @@ def room_db(tmp_path_factory):
         cls = int(np.bincount(L0["class_ids"][sel]).argmax())
         sub = scene.extract_by_ids(0, "instance_ids", [uid],
                                    compute_levels=True)
-        db.objects.append(RsObject(uidx=uid, filename=f"o{uid}.ply",
-                                   class_idx=cls, cloud=sub))
+        db.objects.append(rs.RsObject(uidx=uid, filename=f"o{uid}.ply",
+                                      class_idx=cls, cloud=sub))
         P = np.tile(np.eye(4, dtype=np.float32), (12, 1, 1))
         P[:, 0, 3] = rng.uniform(-0.3, 0.3, 12)
         P[:, 2, 3] = rng.uniform(-0.3, 0.3, 12)
         P[3] = P[2]                                  # a duplicate pose
         poses.append(P)
         scores.append(rng.uniform(0.0, 1.0, 12).astype(np.float32))
-        arr.append(Placement(uid, 0, len(db.objects) - 1, 0, np.eye(4),
-                             0.9))
+        arr.append(rs.Placement(uid, 0, len(db.objects) - 1, 0, np.eye(4),
+                                0.9))
     for i in range(2):
-        db.scenes.append(RsScene(uidx=i, arrangement_idx=i,
-                                 scn_filename=path, cloud=scene))
+        db.scenes.append(rs.RsScene(uidx=i, arrangement_idx=i,
+                                    scn_filename=path, cloud=scene))
     db.arrangements = [arr, []]
     db.proposed_poses = [None, poses]
     db.proposed_scores = [None, scores]
     return db
 
 
-def test_non_maxima_suppression_copy(room_db):
-    props = list(zip(room_db.proposed_poses[1], room_db.proposed_scores[1]))
+@pytest.fixture(scope="module")
+def room_dbs(tmp_path_factory):
+    """(port database, JAX-package database) of the same room."""
+    d = tmp_path_factory.mktemp("helpers")
+    spec = synthetic.SceneSpec(room_size=(1.6, 1.6), wall_height=0.9,
+                               objects=[
+        ("chair", (0.45, 0.45), (0.35, 0.5, 0.35), 0.0),
+        ("table", (1.1, 1.0), (0.5, 0.4, 0.35), 0.0)])
+    path = str(d / "scene.ply")
+    synthetic.save_scene_ply(path, spec, resolution=6)
+    return _room_db("rescan_tpu_torch", path), _room_db("rescan_tpu", path)
+
+
+def test_non_maxima_suppression_copy(room_dbs):
+    db_t, db_j = room_dbs
     for (pa, sa), (pb, sb) in zip(
-            tpp.non_maxima_suppression(room_db, props),
-            jpp.non_maxima_suppression(room_db, props)):
+            tpp.non_maxima_suppression(
+                db_t, list(zip(db_t.proposed_poses[1],
+                               db_t.proposed_scores[1]))),
+            jpp.non_maxima_suppression(
+                db_j, list(zip(db_j.proposed_poses[1],
+                               db_j.proposed_scores[1])))):
         np.testing.assert_array_equal(pa, pb)
         np.testing.assert_array_equal(sa, sb)
 
 
-def test_scene_saliency_copy(room_db):
-    a, b = copy.deepcopy(room_db), copy.deepcopy(room_db)
+def test_scene_saliency_copy(room_dbs):
+    a, b = (copy.deepcopy(d) for d in room_dbs)
     tst.compute_scene_saliency(a, 1)
     jst.compute_scene_saliency(b, 1)
     qa = a.scenes[1].cloud.levels[0]["qualities"]
@@ -161,8 +222,8 @@ def test_scene_saliency_copy(room_db):
     assert 0 < qa.sum() < len(qa)
 
 
-def test_add_static_objects_copy(room_db):
-    a, b = copy.deepcopy(room_db), copy.deepcopy(room_db)
+def test_add_static_objects_copy(room_dbs):
+    a, b = (copy.deepcopy(d) for d in room_dbs)
     tst.add_static_objects(a, 1)
     jst.add_static_objects(b, 1)
     assert len(a.arrangements[1]) == len(b.arrangements[1]) == 2
