@@ -40,7 +40,23 @@ result lines:
              smoothing engine on the bench level-1 graph held to the
              native engine, both timed. K1/K2 launch counts per check;
              plain calls must be 0. A mesh of slots on one card checks
-             correctness; it is no scaling figure.
+             correctness; it is no scaling figure;
+7. eval    — the evaluation and viewing path on [cuda:0]. (a) the small
+             3-scan sequence through the driver with eval files, both
+             rescans held to the JAX package's committed outputs and its
+             five metrics to the committed metrics
+             (tests/data/torch_port_small3_ref.npz); (b) the bench room
+             as a 3-scan sequence (chair 0 moved, then the sofa): seconds
+             per rescan with substage timings, the three evaluators on
+             the card, equal to the same evaluators on the CPU, beside
+             RESULTS_r02.json's TPU numbers (context, not a gate); (c) the
+             viewer on (b)'s last database at 1024x768 in four
+             configurations, each card image held to the CPU render
+             (byte for byte without EDL and colour maps, else at most
+             0.1 % of pixels off by one level), ms per render, and the
+             CLI's PNG written and read back. Calls of the eval, viewer and
+             distance-field device work on CPU tensors during the card's
+             runs of (b) and (c) must be 0.
 
 Then one JSON line of per-kernel numbers, the card's nvidia-smi line,
 and the result line {"ok": true, "device": {...}}.
@@ -58,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -68,6 +85,7 @@ import torch  # noqa: E402
 KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
+REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
 # The bound's rates: NVIDIA's H100 SXM data sheet (HBM3, and FP32 outside
 # the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -693,6 +711,238 @@ def phase_mesh(work: str, bench_root: str, bench_class: str,
     _mesh_smoothing(bench_root, slots[0])
 
 
+def _run_eval_driver(root: str, class_file: str, devices, profiles=None):
+    from rescan_tpu_torch.pipeline import driver
+    from rescan_tpu_torch.sequences import EVAL_DIR, SEQ_NAME
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            driver.run_sequence(SEQ_NAME, class_file, profiles=profiles,
+                                devices=devices,
+                                eval_folder=os.path.join(root, EVAL_DIR))
+    finally:
+        os.chdir(cwd)
+
+
+def _synced(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _cpu_calls(phase: str, what: str) -> None:
+    import rescan_tpu_torch
+    if sum(rescan_tpu_torch.CPU_CALLS.values()):
+        raise SystemExit(f"[{phase}] FAIL {what}: device work on CPU "
+                         f"tensors {dict(rescan_tpu_torch.CPU_CALLS)}")
+
+
+def _eval_small(cuda, work: str) -> None:
+    """(a): the small 3-scan sequence, both rescans and the metrics held
+    to the JAX package's committed outputs."""
+    from rescan_tpu_torch import sequences
+    root = os.path.join(work, "small3")
+    class_file = sequences.write_eval_sequence(root, small=True)
+    _, launches, plain = _counted(
+        "eval", "(a) small 3-scan sequence",
+        lambda: _run_eval_driver(root, class_file, [cuda]))
+    ref = dict(np.load(REF3_NPZ))
+    got = sequences.sequence_outputs(root)
+    msgs = []
+    for k, sub in enumerate(sequences.rescans(root)):
+        r = sequences.split_outputs(ref, sub)
+        g = sequences.split_outputs(got, sub)
+        bad = sequences.compare_outputs(r, g, augmented=k > 0)
+        diffs = sequences.output_diffs(r, g)
+        if bad:
+            raise SystemExit(f"[eval] FAIL (a) {sub} vs "
+                             f"{os.path.relpath(REF3_NPZ, HERE)}: {bad}; "
+                             f"{diffs}")
+        msgs.append(f"{sub}{' (augmented)' if k else ''}: {diffs}")
+    metrics = sequences.evaluate_sequence(root, device=cuda)
+    want = {k: float(ref[f"metric/{k}"]) for k in sequences.METRICS}
+    bad = sequences.compare_metrics(want, metrics)
+    if bad:
+        raise SystemExit(f"[eval] FAIL (a) metrics: {bad}")
+    say("eval", "(a) small 3-scan sequence vs the committed JAX outputs: "
+        + "; ".join(msgs) + f"; kernel launches {launches}, plain calls "
+        f"{plain}")
+    say("eval", "(a) metrics (card | JAX, CPU): " + ", ".join(
+        f"{k} {metrics[k]!r} | {want[k]!r}" for k in sequences.METRICS))
+
+
+def _eval_bench(cuda, work: str):
+    """(b): the bench room as a 3-scan sequence on [cuda:0]; returns its
+    root."""
+    import rescan_tpu_torch
+    from rescan_tpu_torch import sequences
+    root = os.path.join(work, "bench3")
+    t0 = time.perf_counter()
+    class_file = sequences.write_eval_sequence(root, small=False)
+    say("eval", f"(b) bench 3-scan sequence written in "
+        f"{time.perf_counter() - t0:.1f}s")
+    profiles = []
+    rescan_tpu_torch.CPU_CALLS.clear()
+    (_, launches, plain), wall = _synced(lambda: _counted(
+        "eval", "(b) bench 3-scan sequence",
+        lambda: _run_eval_driver(root, class_file, [cuda],
+                                 profiles=profiles)))
+    per = []
+    for p in profiles:
+        secs = p["pose_proposal"]["total"] + p["segment_transfer"]["total"]
+        per.append(secs)
+        print(json.dumps({"eval_timings": {
+            "timestep": p["timestep"], "seconds": secs,
+            "pose_proposal": {k: round(v, 4) for k, v in
+                              p["pose_proposal"].items()},
+            "segment_transfer": {k: round(v, 4) for k, v in
+                                 p["segment_transfer"].items()}}}),
+            flush=True)
+    out = {sub: sequences.read_outputs(root, sub)
+           for sub in sequences.rescans(root)}
+    for sub, o in out.items():
+        if not len(o["class_ids"]) or not o["prop_counts"].any():
+            raise SystemExit(f"[eval] FAIL (b) {sub}: no proposals or no "
+                             f"labels")
+    say("eval", f"(b) bench 3-scan sequence in {wall:.1f}s (driver, eval "
+        f"files included): seconds per rescan "
+        + ", ".join(f"{p['timestep']} {s:.4f} (pose_proposal "
+                    f"{p['pose_proposal']['total']:.4f} + segment_transfer "
+                    f"{p['segment_transfer']['total']:.4f})"
+                    for p, s in zip(profiles, per))
+        + f"; proposals per object "
+        + ", ".join(f"{k} {o['prop_counts'].tolist()}" for k, o in out.items())
+        + f"; kernel launches {launches}, plain calls {plain}")
+
+    metrics, t_dev = _synced(lambda: sequences.evaluate_sequence(
+        root, device=cuda))
+    _cpu_calls("eval", "(b) evaluators on the card")
+    cpu, t_cpu = _synced(lambda: sequences.evaluate_sequence(
+        root, device="cpu"))
+    rescan_tpu_torch.CPU_CALLS.clear()
+    if json.dumps(metrics, sort_keys=True) != json.dumps(cpu,
+                                                         sort_keys=True):
+        raise SystemExit(f"[eval] FAIL (b) card evaluators {metrics} vs "
+                         f"the CPU's {cpu}")
+    ctx = os.path.join(HERE, "RESULTS_r02.json")
+    tpu = {}
+    if os.path.exists(ctx):
+        with open(ctx) as f:
+            tpu = json.load(f)
+    say("eval", f"(b) evaluators on the card in {t_dev:.3f}s, equal to the "
+        f"CPU's ({t_cpu:.3f}s; both host clock, eval files read "
+        f"included): " + ", ".join(
+            f"{k} {v!r}" for k, v in metrics.items()))
+    say("eval", "(b) context only, not a gate: RESULTS_r02.json (JAX on a "
+        "TPU, an older smoothing default): " + ", ".join(
+            f"{k} {tpu[k]}" for k in (
+                *sequences.METRICS, "instance_transfer_mIoU_per_scan",
+                "instance_transfer_mIoU_with_chair_equivalence_per_scan")
+            if k in tpu))
+    print(json.dumps({"eval_metrics": metrics, "seconds_per_rescan": per,
+                      "eval_seconds": {"cuda": t_dev, "cpu": t_cpu}}),
+          flush=True)
+    return root
+
+
+def _read_png(path: str) -> np.ndarray:
+    """An RGB8 PNG of filter-0 rows, as render.write_png writes it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, w = 8, b"", 0
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(
+                body[4:8], "big")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if (rows[:, 0] != 0).any():
+        raise SystemExit("[eval] FAIL (c) PNG rows not filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+VIEWS = {
+    "instance": [],
+    "class surfels EDL": ["--mode", "class", "--surfels", "--edl", "1.0"],
+    "score proposals overlays": ["--mode", "score", "--placement_mode",
+                                 "proposals", "--show_bboxes", "--show_grid",
+                                 "--show_axes"],
+    "distance-field slice": ["--df_slice_y", "0.3"],
+}
+
+
+def _eval_viewer(cuda, work: str, root: str) -> None:
+    """(c): the viewer on the last database of (b), on the card against
+    the CPU."""
+    import rescan_tpu_torch
+    from rescan_tpu_torch.viewer import cli, render
+    from rescan_tpu_torch import sequences
+    rsdb = os.path.join(sequences.SEQ_NAME, "scan_002.rsdb")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for name, argv in VIEWS.items():
+            args = [rsdb, "--resolution", "1024", "768"] + argv
+            out = os.path.join(work, name.replace(" ", "_") + ".png")
+            rescan_tpu_torch.CPU_CALLS.clear()
+            captured = []
+            real = render.render_rsdb
+
+            def keep(db, **kw):
+                captured.append((db, kw))
+                return real(db, **kw)
+
+            render.render_rsdb = keep
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(args + ["--output", out, "--device", str(cuda)])
+            finally:
+                render.render_rsdb = real
+            db, kw = captured[0]
+            img = real(db, **kw)
+            ms = cuda_ms(lambda: real(db, **kw), 3)
+            _cpu_calls("eval", f"(c) {name}")
+            kw_cpu = dict(kw, device="cpu")
+            t0 = time.perf_counter()
+            ref = real(db, **kw_cpu)
+            t_cpu = time.perf_counter() - t0
+            rescan_tpu_torch.CPU_CALLS.clear()
+            a, b = img.cpu().numpy().astype(np.int64), ref.numpy()
+            d = np.abs(a - b).max(axis=-1)
+            off, lvl = int((d > 0).sum()), int(d.max())
+            exact = name == "instance"
+            if (exact and off) or lvl > 1 or off > 0.001 * d.size:
+                raise SystemExit(f"[eval] FAIL (c) {name}: {off} pixels off "
+                                 f"the CPU render, by up to {lvl} levels")
+            png = _read_png(out)
+            if not np.array_equal(png, img.cpu().numpy()):
+                raise SystemExit(f"[eval] FAIL (c) {name}: the PNG read "
+                                 f"back differs from the render")
+            colours = len(np.unique(png.reshape(-1, 3), axis=0))
+            say("eval", f"(c) {name} ({' '.join(argv) or '--mode instance'}"
+                f"): {ms:.3f} ms per render on the card (CUDA events, mean "
+                f"of 3), CPU {t_cpu * 1e3:.1f} ms (host clock); {off} pixels "
+                f"off the CPU render (max {lvl} level); PNG "
+                f"{os.path.getsize(out)} B read back equal, {colours} "
+                f"colours")
+    finally:
+        os.chdir(cwd)
+
+
+def phase_eval(cuda, work: str) -> None:
+    _eval_small(cuda, work)
+    root = _eval_bench(cuda, work)
+    _eval_viewer(cuda, work, root)
+
+
 def main() -> int:
     phase_probe()
     cuda = torch.device("cuda", 0)
@@ -709,6 +959,7 @@ def main() -> int:
         phase_parity(cuda, work)
         launches, single = phase_slice(cuda, bench_root, bench_class)
         phase_mesh(work, bench_root, bench_class, single)
+        phase_eval(cuda, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,

@@ -17,9 +17,16 @@ the native host library from ``native/rescan_host.cpp`` (g++,
 ``ops/gnn.py``).
 """
 
+import collections
+
 import torch
 
 __version__ = "0.1.0"
+
+# Calls of the eval, viewer and distance-field functions that did their
+# device work on CPU tensors, by function name. On the card every such
+# call should land on a CUDA tensor; chip_smoke.py holds the count at 0.
+CPU_CALLS: collections.Counter = collections.Counter()
 
 # Pose transforms and the ICP normal equations are f32 matmuls; TF32
 # would move ICP poses by ~1e-3 against the reference.
@@ -40,3 +47,10 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def count_if_cpu(name: str, device) -> None:
+    """Count a call of ``name`` whose device work runs on ``device`` in
+    CPU_CALLS when that is the CPU."""
+    if torch.device(device).type == "cpu":
+        CPU_CALLS[name] += 1

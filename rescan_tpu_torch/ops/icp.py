@@ -117,7 +117,10 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     qq = p2 - c2[:, None, :]
     d = p - qq
     cxn = torch.linalg.cross(p, n2)
-    ddn = (d * n2).sum(-1)
+    # products and sums in the reference's order (icp.py:152-165): ddn as
+    # its einsum over i, e2 as w * (ddn * ddn), the trace left to right
+    ddn = d[..., 0] * n2[..., 0] + d[..., 1] * n2[..., 1] \
+        + d[..., 2] * n2[..., 2]
 
     # 6x6 normal system: J = [c; n] per correspondence (Low '04)
     j6 = torch.cat([cxn, n2], dim=-1)                       # (B, N, 6)
@@ -125,11 +128,14 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     wd = w * ddn
     (s4,) = total(tree_sum(torch.cat([
         (wj6[..., :, None] * j6[..., None, :]).reshape(B, N, 36),
-        j6 * wd[..., None], (wd * ddn)[..., None]], -1)))
+        j6 * wd[..., None], (w * (ddn * ddn))[..., None]], -1)))
     C = s4[:, :36].reshape(B, 6, 6)
     b = -s4[:, 36:42]
     e2 = s4[:, 42]
-    tr = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    tr = C[:, 0, 0]
+    for k in range(1, 6):
+        tr = tr + C[:, k, k]
+    tr = tr[:, None, None]
     C = C + torch.eye(6, dtype=C.dtype, device=C.device)[None] \
         * (1e-6 * tr / 6.0 + 1e-20)
     x, info = torch.linalg.solve_ex(C, b[..., None])

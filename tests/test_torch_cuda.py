@@ -224,3 +224,95 @@ def test_kernel_far_from_the_slab_centre(cuda):
     assert (p[0] >= 0).sum() > 0.9 * len(q)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+def _eval_files(root, rng):
+    """Two 3000-vertex scans of ScanNet-format eval files (label noise, a
+    merged instance, ids < 0 and >= 256) under ``root``."""
+    import os
+    for s, scan in enumerate(["scan_000", "scan_001"]):
+        gt = np.repeat(np.int64([1000, 5001, 5002, 7003]), 750)
+        pred = gt.copy()
+        flip = rng.random(len(gt)) < 0.1
+        pred[flip] = rng.choice([5001, 5002, 7003, 1000, -7, 5300],
+                                int(flip.sum()))
+        if s:
+            pred[1500:1700] = 5001
+        for task in ("semantic_label", "instance_transfer",
+                     "semantic_instance"):
+            for kind, ids in (("gt_segmentation", gt), ("predictions", pred)):
+                d = os.path.join(root, task, kind)
+                os.makedirs(d, exist_ok=True)
+                if task == "semantic_instance" and kind == "predictions":
+                    os.makedirs(os.path.join(d, "predicted_masks"),
+                                exist_ok=True)
+                    with open(os.path.join(d, f"{scan}.txt"), "w") as f:
+                        for iid in (5001, 5002, 7003):
+                            m = f"predicted_masks/{scan}_{iid}.txt"
+                            np.savetxt(os.path.join(d, m),
+                                       (ids == iid).astype(np.int64), "%d")
+                            f.write(f"{m} {iid // 1000} 0.{iid % 7 + 2}\n")
+                    continue
+                vals = ids // 1000 if task == "semantic_label" else ids
+                np.savetxt(os.path.join(d, f"{scan}.txt"), vals, "%d")
+
+
+def test_evaluators_on_card_match_cpu(cuda, tmp_path):
+    """The three evaluators' device counting on the card against the
+    same calls on the CPU: equal results."""
+    import glob
+    from rescan_tpu_torch.eval import (instance_transfer, semantic_instance,
+                                       semantic_label)
+    _eval_files(str(tmp_path), np.random.default_rng(2))
+
+    def files(task):
+        p = sorted(glob.glob(str(tmp_path / task / "predictions" / "*.txt")))
+        return p, [f.replace("predictions", "gt_segmentation") for f in p]
+
+    for dev in (cuda, "cpu"):
+        got = (semantic_label.evaluate(*files("semantic_label"), device=dev),
+               [instance_transfer.evaluate_scan(p, g, device=dev)
+                for p, g in zip(*files("instance_transfer"))],
+               semantic_instance.evaluate(*files("semantic_instance"),
+                                          device=dev))
+        if dev == "cpu":
+            assert repr(got) == repr(want)
+        want = got
+    assert 0.0 < want[1][0] < 1.0
+
+
+def test_renders_on_card_match_cpu(cuda):
+    """Splat (fixed and surfel sizes), EDL, overlays, the colour map and
+    the distance field on the card against the CPU: images and the field
+    equal, EDL within one level on at most 0.1 % of pixels."""
+    from rescan_tpu_torch.ops import distance_field
+    from rescan_tpu_torch.viewer import render
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0, 2, (200_000, 3)).astype(np.float32)
+    pts[100_000:] = pts[:100_000]                 # equal-depth ties
+    cols = rng.uniform(0, 1, (len(pts), 3))
+    nrm = rng.normal(size=(len(pts), 3))
+    radii = rng.uniform(0.002, 0.02, len(pts)).astype(np.float32)
+    view = render.look_at([3.0, 2.5, 3.5], [1.0, 1.0, 1.0])
+    segs = render.grid_segments(pts.min(0), pts.max(0), y=0.0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        img, z = render.render_points(pts, cols, view, 1024, 768,
+                                      shade_normals=nrm, radii=radii,
+                                      return_zbuf=True, device=dev)
+        render.draw_segments(img, z, view, segs,
+                             np.full((len(segs), 3), 90, np.uint8), px=2)
+        df = distance_field.build_distance_field(pts[:20000], 0.05, 0.5,
+                                                 device=dev)
+        out[dev.type] = (img.cpu(), z.cpu(),
+                         render.apply_edl(img, z, 1.0).cpu(),
+                         render.diverging_colors(np.linspace(0, 1, 999),
+                                                 device=dev).cpu(),
+                         df.dist.cpu(), df.lookup(pts[::7]).cpu())
+    a, b = out["cuda"], out["cpu"]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    d = (a[2].long() - b[2].long()).abs().amax(-1)
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 0.001 * d.numel()
+    assert (a[3] - b[3]).abs().max() < 1e-12
+    assert torch.equal(a[4].view(torch.int32), b[4].view(torch.int32))
+    assert torch.equal(a[5], b[5])

@@ -113,13 +113,19 @@ def test_icp_step_matches_jax_slab_engine():
 
 
 def test_indexed_icp_matches_jax_slab_engine():
-    """The whole loop on the two-object, 8-pair batch: poses within 1e-3
-    (the drift tests/test_icp.py already allows JAX between batch
-    shapes, from the ill-conditioned pairs above), errors within 1e-4,
-    the same final active set, the padding pair untouched, and loop
-    lengths within two iterations: the |delta err| < 1e-5 convergence
-    test sits at the scale of an ill-conditioned pair's f32 drift in err
-    (here JAX runs 9 iterations and the port 7, both stopped by pair 1)."""
+    """The whole loop on the two-object, 8-pair batch: pairs 0 and 2-5
+    within 1e-5 of JAX's poses; every pose within 5e-4 and every error
+    within 2e-5; the same final active set, the padding pair untouched,
+    and loop lengths within two iterations.
+
+    Pairs 1 and 6 drift (3.1e-4 and 4.8e-5; JAX stops pair 1 after 9
+    iterations, the port after 7). Every product is formed in JAX's
+    order; what differs first are the per-pair sums over points, a fixed
+    tree here and XLA's reduction there: at iteration 1 pair 1's
+    right-hand side b differs by 4e-5 relative (a sum of cancelling
+    terms), and at iteration 2, from the same state, cond(C) ~ 3e6
+    turns that into a step differing by 9e-5. The |delta err| < 1e-5
+    stop test then sits at the scale of the drift in err."""
     scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
         _indexed_case(12345)
     js, slab = _slab_pair(scene_pts, scene_nrm)
@@ -131,8 +137,10 @@ def test_indexed_icp_matches_jax_slab_engine():
         torch.from_numpy(upts), torch.from_numpy(unrm),
         torch.from_numpy(umask), torch.from_numpy(own),
         torch.from_numpy(val), slab, torch.from_numpy(T0), 0.10, MAX_ANGLE)
-    np.testing.assert_allclose(tT.numpy(), jT, rtol=0, atol=1e-3)
-    np.testing.assert_allclose(terr.numpy(), jerr, rtol=0, atol=1e-4)
+    well = [0, 2, 3, 4, 5]
+    np.testing.assert_allclose(tT.numpy()[well], jT[well], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tT.numpy(), jT, rtol=0, atol=5e-4)
+    np.testing.assert_allclose(terr.numpy(), jerr, rtol=0, atol=2e-5)
     np.testing.assert_array_equal(tact.numpy(), jact)
     np.testing.assert_array_equal(tT.numpy()[~val], T0[~val])
     assert 6 < n_iter < 100

@@ -58,6 +58,17 @@ assert np.array_equal(sm, s), (sm, s)
 assert np.array_equal(Tm, T.numpy()), (Tm, T)
 from rescan_tpu_torch.core import native
 from rescan_tpu_torch.pipeline import create_eval_files, seg2rsdb
+from rescan_tpu_torch.eval import (instance_transfer, semantic_instance,
+                                   semantic_label)
+from rescan_tpu_torch.ops import distance_field
+from rescan_tpu_torch.viewer import cli, render
+conf = torch.zeros((42, 42), dtype=torch.int64)
+semantic_label.accumulate_confusion(np.array([5, 7]), np.array([5, 5]), conf)
+df = distance_field.build_distance_field(pts, 0.1, 0.3, device="cpu")
+img = render.render_points(pts, np.ones_like(pts), render.look_at(
+    [2.0, 2.0, 2.0], [0.5, 0.5, 0.5]), 64, 48, device="cpu")
+assert int(conf[5, 5]) == 1 and img.shape == (48, 64, 3)
+assert float(df.lookup(pts[:5]).max()) == 0.0
 assert native._load()._name == native.library_path(), native._load()._name
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "rescan_tpu" or m.startswith("rescan_tpu."))
@@ -69,10 +80,11 @@ print("NOJAX_OK")
 def test_port_imports_no_jax():
     """In a fresh interpreter with JAX_PLATFORMS=cpu kept (under which
     rescan_tpu/__init__ would import JAX), every port module imports, the
-    mesh module and the copied stages included, and the CPU path scores
-    and aligns, on one device and on a CPU mesh, with neither JAX nor any
-    module of the JAX package loaded, and the native library loaded from
-    the port's own build."""
+    mesh module, the copied stages, the evaluators and the viewer
+    included, and the CPU path scores, aligns, counts, builds a distance
+    field and renders, on one device and on a CPU mesh, with neither JAX
+    nor any module of the JAX package loaded, and the native library
+    loaded from the port's own build."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
@@ -107,6 +119,10 @@ def test_port_sources_import_no_jax_package():
     assert len(files) > 20
     found = {os.path.relpath(f, ROOT): _imports_of_jax_package(f)
              for f in files}
+    assert {os.path.join("rescan_tpu_torch", *f.split("/")) for f in (
+        "eval/semantic_label.py", "eval/instance_transfer.py",
+        "eval/semantic_instance.py", "viewer/render.py", "viewer/cli.py",
+        "ops/distance_field.py")} <= set(found)
     assert not {f: b for f, b in found.items() if b}
 
 
