@@ -7,8 +7,10 @@ result lines:
 
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
-2. build   — the native host library and the CUDA gated-NN kernel, from
-             this checkout's sources; ptxas's report and, per kernel
+2. build   — the native host library and the two CUDA libraries (gated NN;
+             per-pair sums, fma and the 6x6 solve), from this checkout's
+             sources, the three
+             compilers started together; ptxas's report and, per gated-NN
              instantiation, its residency (CTAs per SM by the occupancy
              calculator, registers, shared and local bytes);
 3. kernels — K1 (gated_min) and K2 (nearest_gated) against their plain
@@ -21,16 +23,33 @@ result lines:
              kernel and plain times, the pairs the kernel evaluates (the
              host count of its run pruning) and the pairs within r, and
              the bound. Then K1's time on the scoring launch at several
-             shared-memory carveouts, i.e. at fewer CTAs per SM;
+             shared-memory carveouts, i.e. at fewer CTAs per SM. Then
+             pairsum (the ICP's and scoring's per-pair sums in the JAX
+             package's order) against its plain version, bit for bit: random
+             rows of every kind up to 32768 points, whole and chained over
+             runs of points,
+             and the ICP step's two heavy rounds at the bench ICP launch's
+             shape (64 pairs), with kernel, plain and library times and
+             the bound;
 4. parity  — the port's driver over the small 2-scan sequence, held to
              the JAX package's committed outputs
              (tests/data/torch_port_small_ref.npz);
 5. slice   — the port's driver over bench.py's 2-scan scene (seg2rsdb,
              pose_proposal, segment_transfer) on the single device
              [cuda:0], with the kernel launch counts reset just before
-             and read just after; the label transfer's K2 launches of
-             that run are recorded and then held to the plain version
-             and measured as the bench launches of phase 3 are;
+             and read just after, held to the JAX package's outputs on
+             the same sequence (tests/data/torch_port_bench_slab_ref.npz,
+             its run on the sorted slab, at sequences.compare_outputs's
+             limits; tests/data/torch_port_bench_ref.npz, its run on the
+             CPU's HashGrid, the lower-ranked proposals at the
+             other-engine limits); the
+             ICP substages' seconds beside those of the tree-ordered
+             sums this step had before; the label transfer's
+             K2 launches of that run are recorded and then held to the
+             plain version and measured as the bench launches of phase 3
+             are, and so is the first pairsum, fma and lu6 launch of
+             every shape of that run (fma and lu6 measured at their
+             largest, beside torch.addcmul and torch.linalg.solve);
 6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
              slots on cuda:0, or over the visible cards when there are 2
              or more. (a) the small sequence held to the committed JAX
@@ -43,9 +62,13 @@ result lines:
              correctness; it is no scaling figure;
 7. eval    — the evaluation and viewing path on [cuda:0]. (a) the small
              3-scan sequence through the driver with eval files, both
-             rescans held to the JAX package's committed outputs and its
-             five metrics to the committed metrics
-             (tests/data/torch_port_small3_ref.npz); (b) the bench room
+             rescans held, at one set of tolerances, to the JAX package's
+             committed run on the sorted slab
+             (tests/data/torch_port_small3_slab_ref.npz), both also to its
+             run on the CPU's HashGrid (rescan 2's lower-ranked proposals
+             at the other-engine limits), and the five metrics to the
+             committed metrics (tests/data/torch_port_small3_ref.npz);
+             (b) the bench room
              as a 3-scan sequence (chair 0 moved, then the sofa): seconds
              per rescan with substage timings, the three evaluators on
              the card, equal to the same evaluators on the CPU, beside
@@ -84,8 +107,27 @@ import torch  # noqa: E402
 
 KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
+PAIRSUM_SOURCE = "rescan_tpu_torch/ops/csrc/pairsum.cu"
+SOURCES = {"pairsum": PAIRSUM_SOURCE, "fma": PAIRSUM_SOURCE,
+           "lu6": PAIRSUM_SOURCE}
+# no Pallas kernel: XLA's compiled arithmetic of the ICP step: its sums
+# (from the first), its fused products (from the first), its 6x6 solve
+REPLACES_OF = {"pairsum": "rescan_tpu/ops/icp.py:132",
+               "fma": "rescan_tpu/ops/icp.py:101",
+               "lu6": "rescan_tpu/ops/icp.py:162"}
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
 REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
+REF3_SLAB_NPZ = os.path.join(HERE, "tests", "data",
+                             "torch_port_small3_slab_ref.npz")
+BENCH_NPZ = os.path.join(HERE, "tests", "data", "torch_port_bench_ref.npz")
+BENCH_SLAB_NPZ = os.path.join(HERE, "tests", "data",
+                              "torch_port_bench_slab_ref.npz")
+# the ICP substages of phase 5's rescan while the step's per-pair sums were
+# a fixed tree (the parent commit's chip_smoke.py phase 5, run in one chip
+# call with this one's on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md).
+# Context, not a gate: host clocks move between calls
+TREE_SUM_ICP_SECONDS = {"icp_refine": 0.2122, "refine_to_scene": 0.157,
+                        "aug_icp": 0.5066}
 # The bound's rates: NVIDIA's H100 SXM data sheet (HBM3, and FP32 outside
 # the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -133,17 +175,25 @@ def phase_probe() -> None:
         f"devices {torch.cuda.device_count()}")
 
 
-def phase_build() -> None:
-    from rescan_tpu_torch.core import native
-    from rescan_tpu_torch.ops import gnn
+def _timed(fn):
     t0 = time.perf_counter()
-    lib = native._load()
-    t1 = time.perf_counter()
-    gnn.load_library()
-    t2 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+    from rescan_tpu_torch.core import native
+    from rescan_tpu_torch.ops import gnn, pairsum
+    # one compiler per source, all started together
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(_timed, f) for f in (
+            native._load, gnn.load_library, pairsum.load_library)]
+        (lib, t_native), (_, t_gnn), (_, t_sum) = (j.result() for j in jobs)
     say("build", f"native host lib {os.path.relpath(lib._name, HERE)} "
-        f"{t1 - t0:.2f}s, CUDA gnn kernel {t2 - t1:.2f}s")
-    for line in gnn.BUILD_LOG.splitlines():
+        f"{t_native:.2f}s, CUDA gnn kernel {t_gnn:.2f}s, CUDA pairsum "
+        f"kernel {t_sum:.2f}s (built side by side)")
+    for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", "ptxas " + line.strip())
     # what would cap the CTAs per SM, each alone, on an H100: 65,536
@@ -224,7 +274,7 @@ def _bench_queries(cuda, root):
     slab2 = search.build_index(scene.pos(2), normals=scene.nrm(2),
                                tile=1024, device=cuda)
     rng = np.random.default_rng(0)
-    B = 64
+    B = ICP_PAIRS
     Ts = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
     for k in range(B):
         a = rng.uniform(-0.08, 0.08)
@@ -301,7 +351,100 @@ def phase_kernels(cuda, bench_root) -> dict:
         err[row["kind"]] = max(err[row["kind"]], row["max_abs_err"])
     _residency(cuda, launches["K1 scoring"])
     first = {"gated_min": "K1 scoring", "nearest_gated": "K2 ICP"}
-    return {"err": err, "rows": {k: rows[v] for k, v in first.items()}}
+    rows = {k: rows[v] for k, v in first.items()}
+    err["pairsum"] = _pairsum_random(cuda)
+    n_pts = launches["K2 ICP"][2].shape[0] // ICP_PAIRS
+    icp_rows = [_pairsum_row(cuda, r, ICP_PAIRS, n_pts) for r in (3, 4)]
+    err["pairsum"] = max([err["pairsum"]] + [r["max_abs_err"]
+                                             for r in icp_rows])
+    rows["pairsum"] = icp_rows[1]
+    return {"err": err, "rows": rows}
+
+
+def _pairsum_random(cuda) -> float:
+    """pairsum against its plain version on random rows with a fifth of
+    the entries zero: every kind, over the whole axis and chained over
+    runs of points as the mesh's sp slots chain them; the states bit for
+    bit. Returns max |kernel - plain| of the sums."""
+    from rescan_tpu_torch.ops import pairsum
+    from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
+                                              LANES, LANES_TAIL, ONE, WINDOW)
+    spec = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (BLOCKED, 1, 2),
+            (WINDOW, 3, ONE), (CHAIN, 2, 3), (LANES, 0, 1),
+            (LANES_TAIL, 2, 3), (LANES_TAIL, 1, ONE), (BLOCKED_TAIL, 0, 3)]
+    rng = np.random.default_rng(2)
+    err = 0.0
+    for n, parts in ((128, 1), (1024, 1), (2048, 1), (4096, 1), (4096, 4),
+                     (8192, 2), (16384, 1), (32768, 4)):
+        x = torch.from_numpy((rng.normal(size=(7, n, 4))
+                              * (rng.random((7, n, 4)) < 0.8))
+                             .astype(np.float32)).to(cuda)
+        m = n // parts
+        sk = sp = None
+        for k in range(parts):
+            xs = x[:, k * m:(k + 1) * m].contiguous()
+            sk = pairsum.pairsum(xs, spec, k * m, n, sk)
+            sp = pairsum.pairsum_ref(xs, spec, k * m, n, sp)
+        _, e = _compare(f"pairsum random n={n} in {parts} runs",
+                        (pairsum.totals(sk, spec, n), sk),
+                        (pairsum.totals(sp, spec, n), sp))
+        err = max(err, e)
+    say("kernels", "pairsum random rows (every kind; 128 to 32768 points, "
+        "whole and in 2 or 4 chained runs): 0 mismatches")
+    return err
+
+
+ICP_PAIRS = 64
+
+
+def _pairsum_row(cuda, round_: int, b: int, n: int) -> dict:
+    """One of the ICP step's two heavy rounds of sums (3: w, w q, w p2;
+    4: the 6x6 system, b and the error) at the bench ICP launch's shape,
+    laid out and specified as ops/icp.py lays them out, on random rows
+    with a fifth of the weights zero: kernel against plain version bit
+    for bit, both timed, the library's Gram product of the same columns
+    (torch.bmm, one call), and the bound; prints one line."""
+    from rescan_tpu_torch.ops import icp, pairsum
+    rng = np.random.default_rng(round_)
+    spec = icp._specs(n, False)[round_ - 3]
+    k = 7 if round_ == 3 else 15
+    x = rng.normal(size=(b, n, k)).astype(np.float32)
+    x[rng.random((b, n)) < 0.2] = 0.0
+    x = torch.from_numpy(x).to(cuda)
+    q = len(spec)
+
+    def kern():
+        return pairsum.pairsum(x, spec)
+
+    def plain():
+        return pairsum.pairsum_ref(x, spec)
+
+    _, e = _compare(f"pairsum ICP round {round_}", (kern(),), (plain(),))
+    t_k = [cuda_ms(kern, 10)]
+    t_p = [cuda_ms(plain, 1)]
+    t_p.append(cuda_ms(plain, 1))
+    t_k.append(cuda_ms(kern, 10))
+    xt = x.transpose(1, 2)
+    t_lib = cuda_ms(lambda: torch.bmm(xt, x), 10)
+    # the function reads every entry once and writes each pair's sums;
+    # its work is one FMA (2 flops) per point per sum
+    t_bytes = (x.numel() + b * q) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = b * n * q * 2 / FP32_FLOP_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    ms = min(t_k)
+    say("kernels", f"pairsum ICP round {round_} at the bench ICP launch's "
+        f"shape ({b} pairs x {n} points, {q} sums): 0 mismatches; kernel "
+        f"{ms:.4f} ms (runs {[round(t, 4) for t in t_k]}), plain "
+        f"{min(t_p):.3f} ms, torch.bmm Gram product {t_lib:.4f} ms; bound "
+        f"{bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of it")
+    row = {"kind": "pairsum", "round": round_, "pairs": b, "points": n,
+           "sums": q, "ms": ms, "ms_runs": t_k, "plain_ms": min(t_p),
+           "plain_ms_runs": t_p, "library_ms": t_lib, "bound_ms": bound,
+           "bound_by": by, "share_of_bound": bound / ms, "max_abs_err": e}
+    print(json.dumps({"bench_launch": {f"pairsum ICP round {round_}": row}}),
+          flush=True)
+    return row
 
 
 def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
@@ -381,14 +524,26 @@ def _run_driver(root: str, class_file: str, devices, profiles=None) -> None:
         os.chdir(cwd)
 
 
+def _counts():
+    """(launches, plain calls) of every kernel wrapper."""
+    from rescan_tpu_torch.ops import gnn, pairsum
+    return (dict(gnn.LAUNCHES, **pairsum.LAUNCHES),
+            dict(gnn.PLAIN_CALLS, **pairsum.PLAIN_CALLS))
+
+
+def _reset_counts() -> None:
+    from rescan_tpu_torch.ops import gnn, pairsum
+    gnn.reset_counts()
+    pairsum.reset_counts()
+
+
 def _counted(phase: str, what: str, fn):
     """fn() with the kernel launch counts reset just before and read just
-    after; fails unless both kernels launched and no plain version ran."""
-    from rescan_tpu_torch.ops import gnn
-    gnn.reset_counts()
+    after; fails unless every kernel launched and no plain version ran."""
+    _reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches, plain = dict(gnn.LAUNCHES), dict(gnn.PLAIN_CALLS)
+    launches, plain = _counts()
     if min(launches.values()) == 0 or any(plain.values()):
         raise SystemExit(f"[{phase}] FAIL {what}: kernel launches "
                          f"{launches}, plain calls {plain}")
@@ -432,7 +587,141 @@ def phase_parity(cuda, work: str) -> None:
     say("parity", _small_parity("parity", work, [cuda]))
 
 
-def phase_slice(cuda, root: str, class_file: str) -> dict:
+# the recorded calls of one wrapper, one per distinct shape, at most
+MAX_RECORDED = 64
+
+
+def _record_path_calls():
+    """Wrap pairsum.pairsum, pairsum.fma and lu6.solve so that the first
+    call of every distinct shape on the card keeps a copy of its inputs;
+    every call passes on unchanged. Returns (calls, undo)."""
+    from rescan_tpu_torch.ops import lu6, pairsum
+    calls = {"pairsum": {}, "fma": {}, "lu6": {}}
+    real = {"pairsum": pairsum.pairsum, "fma": pairsum.fma,
+            "lu6": lu6.solve}
+
+    def keep(name, key, make):
+        if key not in calls[name] and len(calls[name]) < MAX_RECORDED:
+            calls[name][key] = make()
+
+    def rec_pairsum(x, spec, n0=0, n_total=None, state=None):
+        if x.is_cuda:
+            keep("pairsum", (tuple(x.shape), repr(spec), n0, n_total,
+                             state is None),
+                 lambda: (x.clone(), spec, n0, n_total,
+                          None if state is None else state.clone()))
+        return real["pairsum"](x, spec, n0, n_total, state)
+
+    def rec_fma(a, b, c):
+        if a.is_cuda or b.is_cuda or c.is_cuda:
+            keep("fma", torch.broadcast_shapes(a.shape, b.shape, c.shape),
+                 lambda: tuple(t.contiguous().clone() for t in
+                               torch.broadcast_tensors(a, b, c)))
+        return real["fma"](a, b, c)
+
+    def rec_lu6(c, b):
+        if c.is_cuda:
+            keep("lu6", tuple(c.shape), lambda: (c.clone(), b.clone()))
+        return real["lu6"](c, b)
+
+    pairsum.pairsum, pairsum.fma, lu6.solve = rec_pairsum, rec_fma, rec_lu6
+
+    def undo():
+        pairsum.pairsum, pairsum.fma, lu6.solve = (
+            real["pairsum"], real["fma"], real["lu6"])
+    return calls, undo
+
+
+def _path_launches(calls) -> dict:
+    """Phase 5's pairsum, fma and lu6 launches (the first of every
+    shape), each held to its plain version bit for bit after the run;
+    the largest fma and lu6 launches measured against their plain
+    versions, a PyTorch call of the same function and the bound. Returns
+    {name: row} for the kernels line (pairsum: its max_abs_err only)."""
+    from rescan_tpu_torch.ops import gnn, lu6, pairsum
+    if not all(calls.values()):
+        raise SystemExit(f"[slice] FAIL: launches recorded "
+                         f"{ {k: len(v) for k, v in calls.items()} }")
+    err = 0.0
+    for k, (x, spec, n0, n_total, state) in enumerate(calls["pairsum"].values()):
+        got = pairsum.pairsum(x, spec, n0, n_total, state)
+        want = pairsum.pairsum_ref(x, spec, n0, n_total, state)
+        _, e = _compare(f"pairsum path launch {tuple(x.shape)} n0={n0}",
+                        (got,), (want,))
+        err = max(err, e)
+    shapes = sorted({(x.shape[0], x.shape[1], n_total or x.shape[1])
+                     for x, _, _, n_total, _ in calls["pairsum"].values()},
+                    key=lambda t: t[1])
+    say("slice", f"pairsum: {len(calls['pairsum'])} launch shapes of the "
+        f"run held to the plain version, 0 mismatches; (pairs, points, "
+        f"axis) from {shapes[0]} to {shapes[-1]}, "
+        f"{sum(t[2] >= 16384 for t in shapes)} of them over 16384 points "
+        f"or more")
+    rows = {"pairsum": {"max_abs_err": err}}
+
+    e_fma = 0.0
+    for a, b, c in calls["fma"].values():
+        _, e = _compare(f"fma path launch {tuple(a.shape)}",
+                        (pairsum.fma(a, b, c),), (gnn._fma32(a, b, c),))
+        e_fma = max(e_fma, e)
+    a, b, c = max(calls["fma"].values(), key=lambda t: t[0].numel())
+    n = a.numel()
+    t_k = [cuda_ms(lambda: pairsum.fma(a, b, c), 10)]
+    t_p = [cuda_ms(lambda: gnn._fma32(a, b, c), 3)]
+    t_p.append(cuda_ms(lambda: gnn._fma32(a, b, c), 3))
+    t_k.append(cuda_ms(lambda: pairsum.fma(a, b, c), 10))
+    t_lib = cuda_ms(lambda: torch.addcmul(c, a, b), 10)
+    # three operands read and one result written, 4 B each; 2 flops each
+    bound, by = max((n * 16 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (n * 2 / FP32_FLOP_PER_S * 1e3, "operations"))
+    rows["fma"] = {"ms": min(t_k), "ms_runs": t_k, "plain_ms": min(t_p),
+                   "plain_ms_runs": t_p, "library_ms": t_lib,
+                   "bound_ms": bound, "bound_by": by, "max_abs_err": e_fma,
+                   "entries": n}
+    say("slice", f"fma: {len(calls['fma'])} launch shapes held to the plain "
+        f"version (gnn._fma32), 0 mismatches; the largest, {n} entries: "
+        f"kernel {min(t_k):.4f} ms (runs {[round(t, 4) for t in t_k]}), "
+        f"plain {min(t_p):.4f} ms, torch.addcmul {t_lib:.4f} ms; bound "
+        f"{bound:.5f} ms ({by})")
+
+    e_lu = 0.0
+    for cm, rhs in calls["lu6"].values():
+        got, want = lu6.solve(cm, rhs), lu6.solve_ref(cm, rhs)
+        if not lu6.same_bits(got, want):
+            raise SystemExit(f"[slice] FAIL lu6 path launch "
+                             f"{tuple(cm.shape)}: differs from the plain "
+                             f"version")
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        if fin.any():
+            e_lu = max(e_lu, float((got[fin] - want[fin]).abs().max()))
+    cm, rhs = max(calls["lu6"].values(), key=lambda t: t[0].shape[0])
+    m = cm.shape[0]
+    t_k = [cuda_ms(lambda: lu6.solve(cm, rhs), 10)]
+    t_p = [cuda_ms(lambda: lu6.solve_ref(cm, rhs), 3)]
+    t_p.append(cuda_ms(lambda: lu6.solve_ref(cm, rhs), 3))
+    t_k.append(cuda_ms(lambda: lu6.solve(cm, rhs), 10))
+    t_lib = cuda_ms(lambda: torch.linalg.solve(cm, rhs), 10)
+    # each system's 36 + 6 entries read and 6 written; its flops: the
+    # factorisation's dots and scalings, then the two triangular solves
+    flops = sum(2 * i for j in range(6) for i in range(1, j)) + sum(
+        2 * j * (6 - j) + (6 - j) for j in range(6)) + 2 * 36
+    bound, by = max((m * 48 * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (m * flops / FP32_FLOP_PER_S * 1e3, "operations"))
+    rows["lu6"] = {"ms": min(t_k), "ms_runs": t_k, "plain_ms": min(t_p),
+                   "plain_ms_runs": t_p, "library_ms": t_lib,
+                   "bound_ms": bound, "bound_by": by, "max_abs_err": e_lu,
+                   "systems": m}
+    say("slice", f"lu6: {len(calls['lu6'])} launch shapes held to the plain "
+        f"version (ops/lu6.py solve_ref), 0 mismatches; the largest, {m} "
+        f"systems: kernel {min(t_k):.4f} ms (runs "
+        f"{[round(t, 4) for t in t_k]}), plain {min(t_p):.4f} ms, "
+        f"torch.linalg.solve {t_lib:.4f} ms; bound {bound:.6f} ms ({by})")
+    print(json.dumps({"path_launch": {k: v for k, v in rows.items()}}),
+          flush=True)
+    return rows
+
+
+def phase_slice(cuda, root: str, class_file: str):
     from rescan_tpu_torch import sequences
     from rescan_tpu_torch.ops import search
     profiles = []
@@ -449,6 +738,7 @@ def phase_slice(cuda, root: str, class_file: str) -> dict:
                     use_abs_dot=use_abs_dot)
 
     search.nearest_gated = record
+    path_calls, undo = _record_path_calls()
     t0 = time.perf_counter()
     try:
         _, launches, plain = _counted(
@@ -456,6 +746,7 @@ def phase_slice(cuda, root: str, class_file: str) -> dict:
             lambda: _run_driver(root, class_file, [cuda], profiles=profiles))
     finally:
         search.nearest_gated = real
+        undo()
     wall = time.perf_counter() - t0
     out = sequences.read_outputs(root)
     counts = out["prop_counts"]
@@ -475,14 +766,34 @@ def phase_slice(cuda, root: str, class_file: str) -> dict:
         f"{launches}, plain calls {plain}; proposals per object "
         f"{counts.tolist()}; {len(out['class_ids'])} level-1 points "
         f"labelled")
+    # held to the JAX package's run on the slab at every limit, and to its
+    # run on the CPU's HashGrid with the lower-ranked proposals at the
+    # other-engine limits (rescan_tpu_torch/sequences.py)
+    for path, other in ((BENCH_SLAB_NPZ, False), (BENCH_NPZ, True)):
+        ref = dict(np.load(path))
+        bad = sequences.compare_outputs(ref, out, other_engine=other)
+        diffs = sequences.output_diffs(ref, out)
+        if bad:
+            raise SystemExit(f"[slice] FAIL vs {os.path.relpath(path, HERE)}"
+                             f": {bad}; {diffs}")
+        say("slice", f"bench rescan vs the JAX package's run "
+            f"({os.path.relpath(path, HERE)}): proposal counts "
+            f"{ref['prop_counts'].tolist()} identical, within the "
+            + ("other-engine limits" if other else "limits")
+            + f"; {diffs}")
     p = profiles[0]
+    stages = dict(p["pose_proposal"], **p["segment_transfer"])
+    say("slice", "ICP substages, seconds (this run | with tree-ordered "
+        "sums, context): " + ", ".join(
+            f"{k} {stages[k]:.4f} | {TREE_SUM_ICP_SECONDS[k]}"
+            for k in TREE_SUM_ICP_SECONDS))
     print(json.dumps({"timings": {
         "pose_proposal": {k: round(v, 4) for k, v in
                           p["pose_proposal"].items()},
         "segment_transfer": {k: round(v, 4) for k, v in
                              p["segment_transfer"].items()}}}), flush=True)
     _label_launches(label_calls)
-    return launches, out
+    return launches, out, _path_launches(path_calls)
 
 
 def _label_launches(calls) -> None:
@@ -617,13 +928,14 @@ def _mesh_dpsp(bench_root: str, slots) -> None:
     own, val = np.arange(2), np.ones(2, bool)
     m = pmesh.make_mesh(4, sp=2, devices=slots)
     args = (0.075, np.deg2rad(50.0))
-    gnn.reset_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     T_sh, _ = pmesh.icp_refine_indexed_dpsp(m, slab, upts, unrm, umask, own,
                                             val, T0, *args)
     t_sh = time.perf_counter() - t0
-    launches, plain = dict(gnn.LAUNCHES), dict(gnn.PLAIN_CALLS)
-    if launches["nearest_gated"] == 0 or any(plain.values()):
+    launches, plain = _counts()
+    if (launches["nearest_gated"] == 0 or launches["pairsum"] == 0
+            or any(plain.values())):
         raise SystemExit(f"[mesh] FAIL (c): kernel launches {launches}, "
                          f"plain calls {plain}")
     t0 = time.perf_counter()
@@ -640,12 +952,15 @@ def _mesh_dpsp(bench_root: str, slots) -> None:
         b = p @ T_sh[k, :3, :3].T + T_sh[k, :3, 3]
         res.append(float(np.abs(a - b).mean()))
     moved = [float(np.abs(T1[k] - T0[k]).max()) for k in range(2)]
+    if not np.array_equal(T_sh, T1):
+        raise SystemExit(f"[mesh] FAIL (c): the dp x sp poses differ from "
+                         f"the single loop's by {np.abs(T_sh - T1).max()}")
     if max(res) >= 1e-3 or not max(moved) > 0:
         raise SystemExit(f"[mesh] FAIL (c): residuals {res}, moved {moved}")
     say("mesh", f"(c) dp x sp ICP, 2 pairs ({upts.shape[1]} points each) "
-        f"on the {slab.n_valid}-point level-2 slab, {m.shape}: mean "
-        f"residual vs single {max(res):.3g} (limit 1e-3), pose max diff "
-        f"{np.abs(T_sh - T1).max():.3g}, {n_iter} iterations; "
+        f"on the {slab.n_valid}-point level-2 slab, {m.shape}: bit-identical "
+        f"to the single loop (mean residual {max(res):.3g}), {n_iter} "
+        f"iterations; "
         f"{t_sh:.3f}s vs single {t_1:.3f}s (host clock); kernel launches "
         f"{launches}, plain calls {plain}")
 
@@ -742,8 +1057,10 @@ def _cpu_calls(phase: str, what: str) -> None:
 
 
 def _eval_small(cuda, work: str) -> None:
-    """(a): the small 3-scan sequence, both rescans and the metrics held
-    to the JAX package's committed outputs."""
+    """(a): the small 3-scan sequence, both rescans held to the JAX
+    package's committed run on the sorted slab, the first also to its run
+    on the CPU's HashGrid, and the metrics to the committed metrics, all
+    at sequences.compare_outputs's one set of tolerances."""
     from rescan_tpu_torch import sequences
     root = os.path.join(work, "small3")
     class_file = sequences.write_eval_sequence(root, small=True)
@@ -751,26 +1068,29 @@ def _eval_small(cuda, work: str) -> None:
         "eval", "(a) small 3-scan sequence",
         lambda: _run_eval_driver(root, class_file, [cuda]))
     ref = dict(np.load(REF3_NPZ))
+    slab = dict(np.load(REF3_SLAB_NPZ))
     got = sequences.sequence_outputs(root)
     msgs = []
     for k, sub in enumerate(sequences.rescans(root)):
-        r = sequences.split_outputs(ref, sub)
         g = sequences.split_outputs(got, sub)
-        bad = sequences.compare_outputs(r, g, augmented=k > 0)
-        diffs = sequences.output_diffs(r, g)
-        if bad:
-            raise SystemExit(f"[eval] FAIL (a) {sub} vs "
-                             f"{os.path.relpath(REF3_NPZ, HERE)}: {bad}; "
-                             f"{diffs}")
-        msgs.append(f"{sub}{' (augmented)' if k else ''}: {diffs}")
+        for name, src in (("slab", slab), ("HashGrid", ref)):
+            r = sequences.split_outputs(src, sub)
+            diffs = sequences.output_diffs(r, g)
+            msgs.append(f"{sub} vs the {name} run: {diffs}")
+            # the JAX package's engines part on rescan 2 (sequences.py)
+            bad = sequences.compare_outputs(
+                r, g, other_engine=name == "HashGrid" and k > 0)
+            if bad:
+                raise SystemExit(f"[eval] FAIL (a) {sub} vs the JAX "
+                                 f"package's {name} run: {bad}; {diffs}")
     metrics = sequences.evaluate_sequence(root, device=cuda)
     want = {k: float(ref[f"metric/{k}"]) for k in sequences.METRICS}
     bad = sequences.compare_metrics(want, metrics)
     if bad:
         raise SystemExit(f"[eval] FAIL (a) metrics: {bad}")
-    say("eval", "(a) small 3-scan sequence vs the committed JAX outputs: "
-        + "; ".join(msgs) + f"; kernel launches {launches}, plain calls "
-        f"{plain}")
+    say("eval", "(a) small 3-scan sequence vs the JAX package's committed "
+        "outputs: " + "; ".join(msgs) + f"; kernel launches {launches}, "
+        f"plain calls {plain}")
     say("eval", "(a) metrics (card | JAX, CPU): " + ", ".join(
         f"{k} {metrics[k]!r} | {want[k]!r}" for k in sequences.METRICS))
 
@@ -957,21 +1277,28 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f}s")
         kern = phase_kernels(cuda, bench_root)
         phase_parity(cuda, work)
-        launches, single = phase_slice(cuda, bench_root, bench_class)
+        launches, single, path_rows = phase_slice(cuda, bench_root,
+                                                  bench_class)
         phase_mesh(work, bench_root, bench_class, single)
         phase_eval(cuda, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    kernels = [{"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES, "launches": launches[name],
-                "max_abs_err": kern["err"][name],
-                "ms": kern["rows"][name]["ms"],
-                "plain_ms": kern["rows"][name]["plain_ms"],
-                "bound_ms": kern["rows"][name]["bound_ms"],
-                "bound_by": kern["rows"][name]["bound_by"],
-                # no PyTorch call gates a nearest neighbour by normal
-                "library_ms": None}
-               for name in ("gated_min", "nearest_gated")]
+    rows = dict(kern["rows"], fma=path_rows["fma"], lu6=path_rows["lu6"])
+    err = dict(kern["err"], fma=path_rows["fma"]["max_abs_err"],
+               lu6=path_rows["lu6"]["max_abs_err"])
+    err["pairsum"] = max(err["pairsum"], path_rows["pairsum"]["max_abs_err"])
+    kernels = [{"name": name, "route": "cuda",
+                "source": SOURCES.get(name, KERNEL_SOURCE),
+                "replaces": REPLACES_OF.get(name, REPLACES),
+                "launches": launches[name], "max_abs_err": err[name],
+                "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+                "bound_ms": rows[name]["bound_ms"],
+                "bound_by": rows[name]["bound_by"],
+                # no PyTorch call gates a nearest neighbour by normal; the
+                # sums' is the Gram product of their columns
+                "library_ms": rows[name].get("library_ms")}
+               for name in ("gated_min", "nearest_gated", "pairsum", "fma",
+                            "lu6")]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

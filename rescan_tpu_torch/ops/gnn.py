@@ -239,8 +239,12 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     then the odd neighbour where the sum was inexact and even), and
     round-to-odd in 53 bits followed by one rounding to 24 bits equals a
     single correct rounding (Boldo and Melquiond)."""
-    p = a.double() * b.double()
-    c = c.double()
+    return _sum_to_f32(a.double() * b.double(), c.double())
+
+
+def _sum_to_f32(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 of p + c for f64 tensors p (a product of
+    two f32 values, exact in f64) and c (an f32 value)."""
     s = p + c
     bp = s - c
     bc = s - bp

@@ -22,21 +22,56 @@ package, quirks included:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
-from . import gnn, search
-from .reduce import small_matmul, tree_sum
+from . import gnn, lu6, pairsum, search
+from .pairsum import BLOCKED, BLOCKED_TAIL, CHAIN, ONE, WINDOW
+
+# XLA folds ``1e-6 * tr / 6.0`` (icp.py:161) into one constant
+_DAMP = np.float32(1.66666666e-07)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for batches of small matrices as XLA's dot computes it:
+    per entry an FMA chain over the inner index from the first
+    product."""
+    out = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, a.shape[-1]):
+        out = pairsum.fma(a[..., :, k, None].expand_as(out),
+                          b[..., None, k, :].expand_as(out), out)
+    return out
+
+
+def _rotate(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``einsum("bij,bnj->bni", R, v)`` (icp.py:101-102) in XLA's order."""
+    out = []
+    for i in range(3):
+        acc = R[:, i, 0, None] * v[..., 0]
+        for j in (1, 2):
+            acc = pairsum.fma(R[:, i, j, None].expand_as(acc), v[..., j],
+                              acc)
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+def _cross(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross(p, n)`` (icp.py:151): each ``a*b - c*d`` as
+    ``fma(a, b, -(c*d))``, as XLA contracts it."""
+    def comp(i, k):
+        return pairsum.fma(p[..., i], n[..., k], -(p[..., k] * n[..., i]))
+    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], -1)
 
 
 def _rotation_xyz(ax, ay, az):
-    """R = Rx(ax) @ Ry(ay) @ Rz(az) (icp.h:288-290)."""
-    cx, sx = torch.cos(ax), torch.sin(ax)
-    cy, sy = torch.cos(ay), torch.sin(ay)
-    cz, sz = torch.cos(az), torch.sin(az)
+    """R = Rx(ax) @ Ry(ay) @ Rz(az) (icp.h:288-290). cos and sin are the
+    f64 values rounded to f32 (see ops/pairsum.py on XLA's)."""
+    cx, sx = (f(ax.double()).float() for f in (torch.cos, torch.sin))
+    cy, sy = (f(ay.double()).float() for f in (torch.cos, torch.sin))
+    cz, sz = (f(az.double()).float() for f in (torch.cos, torch.sin))
     one = torch.ones_like(ax)
     zero = torch.zeros_like(ax)
     rx = torch.stack([torch.stack([one, zero, zero], -1),
@@ -48,7 +83,14 @@ def _rotation_xyz(ax, ay, az):
     rz = torch.stack([torch.stack([cz, -sz, zero], -1),
                       torch.stack([sz, cz, zero], -1),
                       torch.stack([zero, zero, one], -1)], -2)
-    return small_matmul(small_matmul(rx, ry), rz)
+    return _matmul(_matmul(rx, ry), rz)
+
+
+def div(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s as a true division, s a constant: on the card a tensor
+    divided by a Python scalar is multiplied by its reciprocal, so s goes
+    in as a tensor on x's device."""
+    return x / torch.tensor(float(s), dtype=x.dtype, device=x.device)
 
 
 def cos_gate_of(max_angle) -> float:
@@ -57,30 +99,53 @@ def cos_gate_of(max_angle) -> float:
     return float(torch.cos(torch.tensor(np.float32(max_angle))))
 
 
-def _no_sum(*xs):
-    return xs
+# the step's four rounds of sums (ops/pairsum.py), over these columns
+_SPEC1 = [(WINDOW, 0, ONE), (WINDOW, 1, ONE)]            # ok, d2
+_SPEC2 = [(WINDOW, 0, ONE)]                              # (d2 - mean)^2
+# C's entries that Eigen's sums of its slices reach in whole 16-lane
+# packets; the rest are BLOCKED_TAIL (ops/pairsum.py)
+_C_PACKED = 36 - 36 % 16
+
+
+def _specs(n: int, single: bool):
+    """Rounds 3 (w; w q; w p2) and 4 (C[i, j] over w j6[i] and j6[j]; b
+    over ddn and w j6; e2 over w and ddn^2) for n points per pair, in the
+    orders of an XLA launch of many pairs or, ``single``, of one."""
+    strided = pairsum.single_pair_kind(n, True) if single else CHAIN
+    flat = pairsum.single_pair_kind(n, False) if single else CHAIN
+    spec3 = ([(WINDOW, 0, ONE)] + [(strided, 0, 1 + i) for i in range(3)]
+             + [(strided, 0, 4 + i) for i in range(3)])
+    spec4 = ([(BLOCKED if 6 * i + j < _C_PACKED else BLOCKED_TAIL, i, 6 + j)
+              for i in range(6) for j in range(6)]
+             + [(strided, 12, i) for i in range(6)] + [(flat, 13, 14)])
+    return spec3, spec4
+
+Sums = Callable[[torch.Tensor, list], torch.Tensor]
 
 
 def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
               err, dist: np.float32, active, it: int, cos_gate: float,
-              allsum=None):
+              sums: Optional[Sums] = None, single: bool = False):
     """One iteration for every pair; returns (T, err, active).
 
-    Every per-pair sum over points is a ``tree_sum`` (ops/reduce.py), so
-    a pair's result does not depend on the pairs batched beside it. The
-    sums come in four dependent rounds (count and sum of d2; sum of
-    squared deviations; sums of w, w*q and w*p2; the normal system and
-    the error); everything after a round is computed from its totals.
-    ``allsum``: with each pair's points split over shards
-    (parallel/mesh.py, the sp mode), a function that adds a round's
-    per-pair partial sums over the shards, by the same tree, and hands
-    every shard the same totals. None on one shard."""
-    total = allsum or _no_sum
+    Every sum over a pair's points is ``pairsum`` in the order XLA's
+    compiled reference adds it, and every product and fused multiply-add
+    around them is formed as XLA forms it (ops/pairsum.py lists both), so
+    a step from the same state equals the JAX package's bit for bit. The
+    sums come in four dependent rounds (ok count and d2; squared
+    deviations; w, w*q and w*p2; the normal system and the error).
+    ``sums(x, spec)``: the (B, Q) totals of one round over the whole
+    point axis; with each pair's points split over shards
+    (parallel/mesh.py, the sp mode) it continues the chains shard after
+    shard. ``pairsum.sums`` when None. ``single``: follow the orders XLA
+    compiles for a launch of one pair (see ``_specs``)."""
+    sums = sums or pairsum.sums
     B, N, _ = obj_pts.shape
+    spec3, spec4 = _specs(N, single)
     R = T[:, :3, :3]
     t = T[:, :3, 3]
-    q = torch.einsum("bij,bnj->bni", R, obj_pts) + t[:, None, :]
-    qn = torch.einsum("bij,bnj->bni", R, obj_nrm)
+    q = _rotate(R, obj_pts) + t[:, None, :]
+    qn = _rotate(R, obj_nrm)
     # inactive pairs query from far away: their blocks are near no tile
     q = torch.where(active[:, None, None], q, 2e6)
     idx, d2, dot = search.nearest_gated(index, q.reshape(B * N, 3),
@@ -93,65 +158,56 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     p2 = scene_pts[idx_safe]
     n2 = scene_nrm[idx_safe]
 
-    dist_f = float(dist)
-    w = torch.where(ok, (1.0 - d2 / dist_f) * dot, 0.0)
+    w = torch.where(ok, (1.0 - div(d2, dist)) * dot, 0.0)
     # 2.5-sigma rejection on squared distances (icp.h:393-401)
-    cnt_raw, d2_sum = total(ok.sum(1), tree_sum(torch.where(ok, d2, 0.0)))
+    s1 = sums(torch.stack([ok.float(), torch.where(ok, d2, 0.0)], -1),
+              _SPEC1)
+    cnt_raw = s1[:, 0].long()
     cnt = cnt_raw.clamp_min(1)
-    mean = d2_sum / cnt
-    (dev_sum,) = total(tree_sum(
-        torch.where(ok, (d2 - mean[:, None]) ** 2, 0.0)))
-    var = dev_sum / cnt
+    mean = s1[:, 1] / cnt
+    dev = d2 - mean[:, None]
+    var = sums(torch.where(ok, dev * dev, 0.0)[..., None], _SPEC2)[:, 0] / cnt
     std = torch.sqrt(var)
     keep = (std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None])
     w = torch.where(keep, w, 0.0)
 
-    (s3,) = total(tree_sum(torch.cat([w[..., None], w[..., None] * q,
-                                      w[..., None] * p2], -1)))
-    wsum, wq, wp2 = s3[:, 0], s3[:, 1:4], s3[:, 4:7]
+    s3 = sums(torch.cat([w[..., None], q, p2], -1), spec3)
+    wsum = s3[:, 0]
     has_corrs = (cnt_raw > 0) & (wsum > 1e-7)
     wsafe = wsum.clamp_min(1e-30)
-    c1 = wq / wsafe[:, None]
-    c2 = wp2 / wsafe[:, None]
+    c1 = s3[:, 1:4] / wsafe[:, None]
+    c2 = s3[:, 4:7] / wsafe[:, None]
     p = q - c1[:, None, :]
-    qq = p2 - c2[:, None, :]
-    d = p - qq
-    cxn = torch.linalg.cross(p, n2)
-    # products and sums in the reference's order (icp.py:152-165): ddn as
-    # its einsum over i, e2 as w * (ddn * ddn), the trace left to right
+    d = p - (p2 - c2[:, None, :])
+    cxn = _cross(p, n2)
     ddn = d[..., 0] * n2[..., 0] + d[..., 1] * n2[..., 1] \
         + d[..., 2] * n2[..., 2]
 
     # 6x6 normal system: J = [c; n] per correspondence (Low '04)
-    j6 = torch.cat([cxn, n2], dim=-1)                       # (B, N, 6)
+    j6 = torch.cat([cxn, n2], -1)                            # (B, N, 6)
     wj6 = w[..., None] * j6
-    wd = w * ddn
-    (s4,) = total(tree_sum(torch.cat([
-        (wj6[..., :, None] * j6[..., None, :]).reshape(B, N, 36),
-        j6 * wd[..., None], (w * (ddn * ddn))[..., None]], -1)))
+    s4 = sums(torch.cat([wj6, j6, ddn[..., None], w[..., None],
+                         (ddn * ddn)[..., None]], -1), spec4)
     C = s4[:, :36].reshape(B, 6, 6)
     b = -s4[:, 36:42]
-    e2 = s4[:, 42]
     tr = C[:, 0, 0]
     for k in range(1, 6):
         tr = tr + C[:, k, k]
-    tr = tr[:, None, None]
+    damp = tr * float(_DAMP) + 1e-20
     C = C + torch.eye(6, dtype=C.dtype, device=C.device)[None] \
-        * (1e-6 * tr / 6.0 + 1e-20)
-    x, info = torch.linalg.solve_ex(C, b[..., None])
-    x = x[..., 0]
-    x = torch.where(torch.isfinite(x) & (info == 0)[:, None], x, 0.0)
+        * damp[:, None, None]
+    x = lu6.solve(C, b)
+    x = torch.where(torch.isfinite(x), x, 0.0)
 
-    new_err = torch.sqrt(e2 / wsafe)
+    new_err = torch.sqrt(s4[:, 42] / wsafe)
     Rx = _rotation_xyz(x[:, 0], x[:, 1], x[:, 2])
-    tx = x[:, 3:6]
     upd = torch.zeros((B, 4, 4), dtype=torch.float32, device=T.device)
     upd[:, :3, :3] = Rx
-    upd[:, :3, 3] = c1 + tx - torch.einsum("bij,bj->bi", Rx, c1)
+    upd[:, :3, 3] = (c1 + x[:, 3:6]) - _matmul(Rx, c1[..., None])[..., 0]
     upd[:, 3, 3] = 1.0
 
     do_update = active & has_corrs
-    T_new = torch.where(do_update[:, None, None], small_matmul(upd, T), T)
+    T_new = torch.where(do_update[:, None, None], _matmul(upd, T), T)
     err_new = torch.where(do_update, new_err, err)
     converged = (it > config.ICP_CONVERGE_MIN_ITER) & \
         ((err - err_new).abs() < config.ICP_CONVERGE_DELTA)
@@ -162,7 +218,9 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
                       uobj_mask: torch.Tensor, obj_of_pair: torch.Tensor,
                       pair_valid: torch.Tensor, index: gnn.SortedSlab,
                       T_init: torch.Tensor, max_dist, max_angle,
-                      max_iter: int = config.ICP_MAX_ITER, allsum=None
+                      max_iter: int = config.ICP_MAX_ITER,
+                      sums: Optional[Sums] = None,
+                      single: Optional[bool] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  int]:
     """Refine B rigid transforms against the scene ``index``.
@@ -170,32 +228,39 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
     uobj_pts/uobj_nrm: (O, N, 3) per-object padded points (pad_batch over
     the unique objects); uobj_mask: (O, N); obj_of_pair: (B,) row of each
     pair's object; pair_valid: (B,) False rows start inactive; T_init:
-    (B, 4, 4). All on the index's device. ``allsum``: the cross-shard
-    sum of the sp mode (see ``_icp_step``); the all-padding start mask
-    goes through it too, so every shard starts and stops alike.
+    (B, 4, 4). All on the index's device. ``sums``: the sums over a
+    pair's points split over shards (the sp mode, see ``_icp_step``);
+    the all-padding start mask goes through it too, so every shard
+    starts and stops alike. ``single``: the sums in the order XLA
+    compiles for a launch of one pair rather than of many (``_specs``);
+    default: whether B is 1, as for the JAX package's launch of the same
+    batch. The pipeline's refinements pass False: the JAX package pads
+    those batches to 256 pairs.
 
     Returns (T, err, active, n_iter): refined transforms, final
     point-to-plane errors, the pairs still active when the loop stopped,
     and the number of iterations run.
     """
+    sums = sums or pairsum.sums
     own = obj_of_pair.long()
     obj_pts = uobj_pts[own]
     obj_nrm = uobj_nrm[own]
     obj_mask = uobj_mask[own] & pair_valid[:, None]
     B = obj_pts.shape[0]
+    single = B == 1 if single is None else single
     cos_gate = cos_gate_of(max_angle)
     scene_pts, scene_nrm = search.index_arrays(index)
     T = T_init.to(torch.float32)
     err = torch.full((B,), 1e6, dtype=torch.float32, device=T.device)
     dist = np.float32(max_dist)
     # all-padding rows start inactive
-    (n_pts,) = (allsum or _no_sum)(obj_mask.sum(1))
-    active = n_pts > 0
+    active = sums(obj_mask.float()[..., None], [(WINDOW, 0, ONE)])[:, 0] > 0
     it = 0
     while it < max_iter and bool(active.any()):
         T, err, active = _icp_step(obj_pts, obj_nrm, obj_mask, index,
                                    scene_pts, scene_nrm, T, err, dist,
-                                   active, it, cos_gate, allsum=allsum)
+                                   active, it, cos_gate, sums=sums,
+                                   single=single)
         dist = np.maximum(np.float32(dist * np.float32(config.ICP_DIST_ANNEAL)),
                           np.float32(config.ICP_DIST_FLOOR))
         it += 1

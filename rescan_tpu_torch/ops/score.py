@@ -21,8 +21,11 @@ import numpy as np
 import torch
 
 from .. import config
-from . import gnn, search
-from .reduce import tree_sum
+from . import gnn, icp, pairsum, search
+
+# the sum of a hypothesis's per-point scores: jnp.sum's order
+# (rescan_tpu/ops/score.py:168; ops/pairsum.py)
+SUM_SPEC = [(pairsum.WINDOW, 0, pairsum.ONE)]
 
 # queries per launch: bounds the (h, Pp, 3) transform and the outputs
 MAX_QUERIES_PER_LAUNCH = 1 << 22
@@ -72,8 +75,9 @@ def _score_terms(index: gnn.SortedSlab, pts_all: torch.Tensor,
     pts = pts_all[owner]
     nrm = nrm_all[owner]
     mask = mask_all[owner]
-    q = torch.einsum("hij,hpj->hpi", R, pts) + t[:, None, :]
-    qn = torch.einsum("hij,hpj->hpi", R, nrm)
+    # the transforms as XLA computes them (ops/pairsum.py)
+    q = icp._rotate(R, pts) + t[:, None, :]
+    qn = icp._rotate(R, nrm)
     h, pp = mask.shape
     d2, dot, found = search.gated_min(index, q.reshape(h * pp, 3),
                                       qn.reshape(h * pp, 3), radius,
@@ -83,10 +87,15 @@ def _score_terms(index: gnn.SortedSlab, pts_all: torch.Tensor,
     dot = dot.reshape(h, pp).clamp(0.0, 1.0)
     angle = torch.arccos(dot)
     s2 = float(np.float32(2.0) * np.float32(sigma) * np.float32(sigma))
-    per_pt = (config.SCORE_ALPHA
-              * torch.exp(-(angle * angle)
-                          / (2.0 * config.SCORE_NORMAL_SIGMA ** 2))
-              + (1.0 - config.SCORE_ALPHA) * torch.exp(-d2 / s2))
+    normal = torch.exp(icp.div(-(angle * angle),
+                               2.0 * config.SCORE_NORMAL_SIGMA ** 2))
+    dist = torch.exp(icp.div(-d2, s2))
+    # XLA contracts the sum of the two weighted terms into one fma; its
+    # f32 exp and arccos are its own, which torch's miss by an ulp on some
+    # arguments (tests/test_torch_score.py)
+    per_pt = pairsum.fma(
+        torch.full_like(dist, np.float32(1.0 - config.SCORE_ALPHA)), dist,
+        config.SCORE_ALPHA * normal)
     return torch.where(found, per_pt, 0.0), mask
 
 
@@ -102,7 +111,7 @@ def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,
     per_pt, mask = _score_terms(index, pts_all, nrm_all, mask_all, hyps,
                                 owner, radius, sigma)
     cnt = mask.sum(1).clamp_min(1)
-    return tree_sum(per_pt) / cnt
+    return pairsum.sums(per_pt[..., None], SUM_SPEC)[:, 0] / cnt
 
 
 class ScoreStream:

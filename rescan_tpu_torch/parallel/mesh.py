@@ -11,15 +11,17 @@ port's driver is one process too, so its mesh is a single-process one:
 * each slot reads its own replica of the read-only inputs (scene slab,
   object tables), made once per device;
 * launches are issued to every slot before any result is read;
-* gathers and cross-shard sums run on one device in fixed slot order, so
-  results do not depend on timing.
+* gathers run on one device in fixed slot order, and a sum over points
+  split across sp slots runs slot after slot, each continuing the
+  previous slot's chains (ops/pairsum.py), so results do not depend on
+  timing or on the number of slots.
 
 No torch.distributed, no NCCL: the largest cross-shard payload is the
-ICP's 6x6 system and a few scalars per pair per iteration.
+carried state of the ICP's 43 sums per pair, once per round.
 
 The scaling axes are the JAX package's: dp over pose hypotheses and
 (object, pose) pairs, sp over an object's points, whose per-pair sums
-are added across the sp slots.
+chain across the sp slots.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import gnn, icp, score, search
-from ..ops.reduce import tree_sum
+from ..ops import gnn, icp, pairsum, score, search
 
 
 def active_device_count() -> int:
@@ -210,43 +211,47 @@ def _to_device(obj, dev: torch.device):
 
 
 class _CrossSum:
-    """The cross-shard sum of one dp row's sp slots: every slot hands in
-    its per-pair partial sums and gets the same totals back. The totals
-    are added on the row's first slot by ``ops.reduce.tree_sum`` over the
-    slots in order — with 2^k slots, the tree a single shard sums its
-    points by — and every slot's copy comes from that one tensor, so all
-    ranks take identical decisions from them."""
+    """The sums of one dp row's sp slots over a pair's points, each slot
+    holding one run of them: slot j continues the chains of slot j - 1
+    (``ops.pairsum``'s carried state), so the row gets the single-device
+    sums bit for bit, and the last slot's totals reach every slot from
+    that one tensor, so all ranks take identical decisions from them.
+    The slots take their turns in order at a shared barrier, which a
+    failing rank aborts (``barrier.abort()``)."""
 
     def __init__(self, mesh: Mesh, slots: Sequence[int]):
         self.mesh = mesh
         self.slots = list(slots)
         self.barrier = threading.Barrier(len(self.slots))
-        self.parts = [None] * len(self.slots)
+        self.state = None
         self.totals = None
 
     def hook(self, rank: int) -> Callable:
-        def allsum(*xs):
-            return self._allsum(rank, xs)
-        return allsum
+        def sums(x, spec):
+            return self._sums(rank, x, spec)
+        return sums
 
-    def _allsum(self, rank: int, xs) -> tuple:
+    def _sums(self, rank: int, x: torch.Tensor, spec) -> torch.Tensor:
         m = self.mesh
         slot = self.slots[rank]
-        # the partials are complete, and so is this rank's copy of the
-        # previous totals (which the first rank replaces below)
-        m.sync_slot(slot)
-        self.parts[rank] = xs
-        self.barrier.wait()
-        if rank == 0:
-            home = m.devices[slot]
-            totals = [tree_sum(torch.stack([p[k].to(home)
-                                                for p in self.parts]), 0)
-                      for k in range(len(xs))]
-            m.sync_slot(slot)
-            self.totals = totals
-        self.barrier.wait()
         dev = m.devices[slot]
-        return tuple(t.to(dev, copy=True) for t in self.totals)
+        n, last = x.shape[1], len(self.slots) - 1
+        for turn in range(len(self.slots)):
+            if turn == rank:
+                prev = None if rank == 0 else self.state.to(dev)
+                st = pairsum.pairsum(x, spec, n0=rank * n,
+                                     n_total=n * len(self.slots), state=prev)
+                if rank == last:
+                    self.totals = pairsum.totals(st, spec,
+                                                 n * len(self.slots))
+                self.state = st
+                m.sync_slot(slot)
+            self.barrier.wait()
+        out = self.totals.to(dev, copy=True)
+        m.sync_slot(slot)
+        # every rank holds its copy before the next round's turns begin
+        self.barrier.wait()
+        return out
 
 
 def _round_up(x: int, m: int) -> int:
@@ -351,14 +356,21 @@ def score_hypotheses_sharded(mesh: Mesh, index: gnn.SortedSlab,
                 torch.from_numpy(mask_p[None, pt]).to(dev), h,
                 torch.zeros(hs, dtype=torch.int64, device=dev), radius,
                 sigma)
-            parts.append((tree_sum(per_pt), mask[:1].sum(1)))
+            parts.append((per_pt[..., None], mask[:1].sum(1)))
     mesh._sync_all()
     lead = mesh.lead
     out = []
     for r in range(dp):
-        row = parts[r * sp:(r + 1) * sp]
-        s = tree_sum(torch.stack([p[0].to(lead) for p in row]), 0)
-        cnt = sum(int(p[1]) for p in row)
+        # the row's point runs continue one chain, slot after slot
+        state = None
+        for j in range(sp):
+            x = parts[r * sp + j][0]
+            with mesh.slot(r * sp + j):
+                state = pairsum.pairsum(
+                    x, score.SUM_SPEC, n0=j * ps, n_total=Pp,
+                    state=None if state is None else state.to(x.device))
+        s = pairsum.totals(state, score.SUM_SPEC, Pp)[:, 0].to(lead)
+        cnt = sum(int(p[1]) for p in parts[r * sp:(r + 1) * sp])
         out.append(s / max(cnt, 1))
     res = torch.cat(out)[:H].cpu().numpy()
     mesh._sync_all()
@@ -392,14 +404,15 @@ def icp_refine_indexed_dpsp(mesh2d: Mesh, index: gnn.SortedSlab, uobj_pts,
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """ops.icp.icp_align_indexed on the (dp, sp) mesh: the pair axis
     split over dp and the per-object point axis over sp. Every per-pair
-    sum of the ICP step is added over the row's sp slots (the ``allsum``
-    hook of ops.icp), so all sp ranks of a row derive the same active
-    set and stop at the same iteration. Point and shard sums follow one
-    tree (``ops.reduce.tree_sum``), so with 2^k points per pair and 2^k
-    slots the result is the single-device loop's (bit for bit on the
-    CPU, tests/test_torch_mesh.py).
+    sum of the ICP step runs over the row's sp slots in order, each slot
+    continuing the previous one's chains (the ``sums`` hook of ops.icp,
+    ``_CrossSum``), so all sp ranks of a row derive the same active set
+    and stop at the same iteration, and the result is the single-device
+    loop's bit for bit (tests/test_torch_mesh.py).
     With sp = 1 this is the flat split of ``icp_refine_indexed_sharded``.
-    Returns (T, err) as numpy."""
+    The sums take ops.icp's many-pair orders (``single=False``) whatever
+    a slot's share: the stages mesh only their refinement batches, which
+    the JAX package pads to 256 pairs. Returns (T, err) as numpy."""
     dp, sp = mesh2d.dp, mesh2d.sp
     B = len(T_init)
     Bp = _round_up(max(B, 1), dp)
@@ -425,7 +438,8 @@ def icp_refine_indexed_dpsp(mesh2d: Mesh, index: gnn.SortedSlab, uobj_pts,
                 umask[:, pt].to(dev), torch.from_numpy(own_p[pr]).to(dev),
                 torch.from_numpy(val_p[pr]).to(dev), idx_r[i],
                 torch.from_numpy(T_p[pr]).to(dev), max_dist, max_angle,
-                allsum=sums[r].hook(j) if sums[r] is not None else None)
+                sums=sums[r].hook(j) if sums[r] is not None else None,
+                single=False)
         except BaseException:
             # a rank that stops early must not leave its row waiting
             if sums[r] is not None:
@@ -445,8 +459,8 @@ def icp_refine_indexed_sharded(mesh: Mesh, index: gnn.SortedSlab, uobj_pts,
                                ) -> Tuple[np.ndarray, np.ndarray]:
     """ops.icp.icp_align_indexed with the pair axis split over every slot;
     the unique-object tables and the slab are replicated. Pairs are
-    independent, so no cross-shard sum is needed. Returns (T, err) as
-    numpy."""
+    independent, so no cross-shard sum is needed; the sums' orders are
+    ``icp_refine_indexed_dpsp``'s. Returns (T, err) as numpy."""
     return icp_refine_indexed_dpsp(mesh.flat(), index, uobj_pts, uobj_nrm,
                                    uobj_mask, obj_of_pair, pair_valid,
                                    T_init, max_dist, max_angle)

@@ -533,10 +533,12 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
                 config.REFINE_ICP_MAX_DIST,
                 np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG))
         else:
+            # the JAX stage pads this batch to >= 256 pairs: its sums take
+            # the many-pair orders (ops/icp.py ``single``)
             T_ref, _, _, _ = icp.icp_align_indexed(
                 upts, unrm, umask, own, val, icp_grid, T_all,
                 config.REFINE_ICP_MAX_DIST,
-                np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG))
+                np.deg2rad(config.REFINE_ICP_MAX_ANGLE_DEG), single=False)
             T_ref = T_ref.cpu().numpy()
         timings["icp_refine"] = time.perf_counter() - t_stage
         if verbose:

@@ -134,9 +134,11 @@ def refine_alignment_to_scene(db: rsdbio.Rsdb, scene_idx: int,
                           .astype(np.float32)).to(dev)
     args = (config.SCENE_REFINE_ICP_MAX_DIST,
             np.deg2rad(config.SCENE_REFINE_ICP_MAX_ANGLE_DEG))
+    # the JAX stage pads this batch to >= 256 pairs: its sums take the
+    # many-pair orders (ops/icp.py ``single``)
     if mesh is None:
         T, _, _, _ = icp.icp_align_indexed(upts, unrm, umask, own, val,
-                                           grid, T0, *args)
+                                           grid, T0, *args, single=False)
         T = T.cpu().numpy()
     else:
         sp = pmesh.refine_sp_factor(len(idxs), upts.shape[1], mesh.size)

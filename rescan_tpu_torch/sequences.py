@@ -148,49 +148,62 @@ def read_outputs(root: str, sub: str = RESCAN) -> Dict[str, np.ndarray]:
     }
 
 
-# Tolerances of the port against the JAX package on one rescan:
+# Tolerances of the port against the JAX package on one rescan, the same
+# for every rescan of a sequence:
 # - proposal counts per object, the arrangement's objects and the label
 #   arrays' lengths: identical;
 # - top-1 proposal per object: pose within 1e-4, score within 1e-5;
-# - every proposal: pose within 1e-4, score within 5e-5 — lower-ranked
-#   proposals come out of ICP runs of ~30 iterations whose reductions sum
-#   in another order than XLA's, which moves a pose by up to ~3e-5 and
-#   its level-1 rescore by up to ~1.2e-5 (measured on the small
-#   sequence, CPU);
+# - every proposal: pose within 1e-4, score within 5e-5;
 # - arrangement poses within 1e-4;
 # - level-1 class and instance ids: agreement >= 0.999, because a pose
 #   moved by ~1e-5 can carry a point at the edge of the 5 cm transfer
 #   radius across it.
-# - a rescan after the first runs on object models that the rescan
-#   before it augmented at its arrangement poses, which are themselves
-#   within 1e-4 of JAX's; the models' points carry that difference into
-#   every ICP and score of the rescan. Its proposals and arrangement are
-#   held to AUGMENTED_POSE_TOL and AUGMENTED_SCORE_TOL (top-1 to the
-#   tolerances above). A score is a mean over the model's level-1 points
-#   of terms that are 0 outside the 10 cm gate, so a moved pose changes
-#   it by whole points. Measured on the small 3-scan sequence, rescan 2
-#   (tools/torch_port_parity_report.py small3 on the CPU, chip_smoke.py
-#   phase 7a on an H100): poses within 8.6e-5 (CPU) and 1.44e-4 (H100),
-#   lower-ranked scores within 4.7e-4 (two points of the table's
-#   4,262-point model), top-1 within 2.6e-5 / 1.5e-6.
+# The port's ICP forms its sums, products and 6x6 solve as XLA compiles
+# the JAX package's (ops/pairsum.py, ops/lu6.py), and its gated-NN results
+# are the Pallas kernel's, so against the JAX package on the same search
+# engine (the sorted slab, its accelerator path) the small 3-scan
+# sequence comes out bit-identical on the CPU, every proposal of both
+# rescans (tests/test_torch_eval.py); what could still differ is the
+# rotation's cos and sin and the scores' exp and arccos (an ulp on some
+# arguments; on the card, whose exp and arccos are CUDA's, ~5e-7). On the
+# CPU the JAX package searches with its HashGrid, whose distances round
+# otherwise: an ICP on a nearly flat error surface then stops at another
+# iteration, and the two committed runs of the small 3-scan sequence part
+# by 1.6e-3 in pose and score on one lower-ranked proposal of rescan 2
+# (tools/torch_port_parity_report.py small3). The references held to
+# every limit are therefore the JAX package's runs on the slab
+# (tests/data/torch_port_small3_slab_ref.npz,
+# torch_port_bench_slab_ref.npz); against a HashGrid run
+# (torch_port_small_ref.npz, torch_port_small3_ref.npz,
+# torch_port_bench_ref.npz; ``other_engine``) the lower-ranked proposals
+# are held to the limits below instead, just above the largest part
+# between the JAX package's own two runs of a sequence: 1.6e-3 in pose
+# and 1.61e-3 in score on the small 3-scan sequence's rescan 2, 1.94e-3
+# and 3.98e-3 on the bench rescan (tools/torch_port_parity_report.py
+# engines).
 TOP1_POSE_TOL = 1e-4
 TOP1_SCORE_TOL = 1e-5
 POSE_TOL = 1e-4
 SCORE_TOL = 5e-5
-AUGMENTED_POSE_TOL = 5e-4
-AUGMENTED_SCORE_TOL = 1e-3
+OTHER_ENGINE_POSE_TOL = 2.5e-3
+OTHER_ENGINE_SCORE_TOL = 5e-3
 LABEL_AGREEMENT = 0.999
 
 
 def compare_outputs(ref: Dict[str, np.ndarray],
                     got: Dict[str, np.ndarray],
-                    augmented: bool = False) -> List[str]:
+                    other_engine: bool = False) -> List[str]:
     """The tolerance breaches of ``got`` against ``ref`` (empty when
-    within every tolerance above); ``augmented``: a rescan after the
-    first, whose proposals and arrangement are held to the AUGMENTED_
-    tolerances."""
-    pose_tol = AUGMENTED_POSE_TOL if augmented else POSE_TOL
-    score_tol = AUGMENTED_SCORE_TOL if augmented else SCORE_TOL
+    within every tolerance above). ``other_engine``: ``ref`` searched
+    with another engine than the port's (a HashGrid run, see above),
+    where an ICP of a lower-ranked proposal may stop at another
+    iteration: those proposals take the OTHER_ENGINE limits."""
+    pose_tol, score_tol = POSE_TOL, SCORE_TOL
+    if other_engine:
+        prop_pose_tol = OTHER_ENGINE_POSE_TOL
+        prop_score_tol = OTHER_ENGINE_SCORE_TOL
+    else:
+        prop_pose_tol, prop_score_tol = pose_tol, score_tol
     bad = []
     if not np.array_equal(ref["prop_counts"], got["prop_counts"]):
         return [f"proposal counts {ref['prop_counts'].tolist()} vs "
@@ -206,7 +219,7 @@ def compare_outputs(ref: Dict[str, np.ndarray],
                        f"{ds:.3g}")
     dp = float(np.abs(ref["prop_poses"] - got["prop_poses"]).max(initial=0))
     ds = float(np.abs(ref["prop_scores"] - got["prop_scores"]).max(initial=0))
-    if dp > pose_tol or ds > score_tol:
+    if dp > prop_pose_tol or ds > prop_score_tol:
         bad.append(f"proposals: pose diff {dp:.3g}, score diff {ds:.3g}")
     for k in ("arr_object_idx", "arr_uidx"):
         if not np.array_equal(ref[k], got[k]):

@@ -1,7 +1,8 @@
 // Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu
-// uses, so that its kernel logic can be built with g++ and run on the CPU
-// (tests/test_torch_gnn_emulated.py). A block is one warp: 32 std::threads
-// that meet at a barrier for every warp collective; blocks run one after
+// and pairsum.cu use, so that their kernel logic can be built with g++ and
+// run on the CPU (tests/test_torch_gnn_emulated.py,
+// tests/test_torch_pairsum.py). A block is one warp: 32 std::threads that
+// meet at a barrier for every warp collective; blocks run one after
 // another. cp.async becomes a plain copy; the f32 intrinsics are the host's
 // IEEE operations (fmaf is a correctly rounded fused multiply-add).
 #pragma once
@@ -9,6 +10,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <barrier>
 #include <functional>
 #include <thread>
@@ -53,9 +55,13 @@ inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) {
   return cudaSuccess;
 }
 
+using std::max;  // CUDA's device min/max
+using std::min;
+
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }

@@ -1,4 +1,5 @@
-"""The CUDA gated-NN kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (gated NN, per-pair sums) against their plain PyTorch
+versions, and the port's paths that run them, on the card.
 
 Imports no JAX, so it runs on a machine without it:
 
@@ -316,3 +317,154 @@ def test_renders_on_card_match_cpu(cuda):
     assert (a[3] - b[3]).abs().max() < 1e-12
     assert torch.equal(a[4].view(torch.int32), b[4].view(torch.int32))
     assert torch.equal(a[5], b[5])
+
+
+# ---------------------------------------------------------------------------
+# The per-pair sums and the ICP on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,parts", [(1024, 1), (4096, 1), (4096, 4),
+                                     (2048, 8), (16384, 1), (32768, 4)])
+def test_pairsum_kernel_bit_identical_to_plain(cuda, n, parts):
+    """ops/csrc/pairsum.cu against the plain version on the card: every
+    kind, over the whole axis and chained over runs of points (from 16384
+    points the slice trees' cascades); the states bit for bit."""
+    from rescan_tpu_torch.ops import pairsum
+    from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
+                                              LANES, LANES_TAIL, ONE, WINDOW)
+    spec = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (BLOCKED, 1, 2),
+            (WINDOW, 3, ONE), (CHAIN, 2, 3), (LANES, 0, 1),
+            (LANES_TAIL, 2, 3), (LANES_TAIL, 1, ONE), (BLOCKED_TAIL, 0, 3)]
+    rng = np.random.default_rng(n + parts)
+    x = torch.from_numpy((rng.normal(size=(9, n, 4))
+                          * (rng.random((9, n, 4)) < 0.8)).astype(
+                              np.float32)).to(cuda)
+    pairsum.reset_counts()
+    m = n // parts
+    sk = sp = None
+    for k in range(parts):
+        xs = x[:, k * m:(k + 1) * m].contiguous()
+        sk = pairsum.pairsum(xs, spec, k * m, n, sk)
+        sp = pairsum.pairsum_ref(xs, spec, k * m, n, sp)
+    assert pairsum.LAUNCHES["pairsum"] == parts
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+
+
+def lu6_systems(kind: str, seed: int = 0, count: int = 2000):
+    """``count`` (C, b) systems for the ICP's 6x6 solve (ops/lu6.py):
+    ``spd`` random normal matrices J J^T; ``icp`` the ICP's damped
+    J^T W J with a nearly dependent column (cond up to ~1e7); ``general``
+    unsymmetric; ``singular`` with zero rows and columns. Rows and columns
+    are scaled over 4 decades."""
+    rng = np.random.default_rng(seed)
+    cs = []
+    for _ in range(count):
+        if kind == "spd":
+            a = rng.normal(size=(6, 12))
+            m = a @ a.T
+        elif kind == "icp":
+            j = rng.normal(size=(200, 6))
+            j[:, 2] = j[:, 0] * 0.999 + rng.normal(size=200) * 10 ** \
+                rng.uniform(-5, -2)
+            m = j.T @ (j * rng.random((200, 1)))
+        elif kind == "general":
+            m = rng.normal(size=(6, 6))
+        else:
+            m = rng.normal(size=(6, 6))
+            k = rng.integers(0, 6, rng.integers(1, 3))
+            m[k] = 0
+            m[:, k] = 0
+        s = 10 ** rng.uniform(-2, 2, 6)
+        cs.append(m * s[:, None] * s[None, :])
+    c = np.asarray(cs, np.float32)
+    if kind in ("spd", "icp"):
+        # the step's damping (icp.py:160-161, as XLA folds it)
+        tr = np.zeros(count, np.float32)
+        for i in range(6):
+            tr = (tr + c[:, i, i]).astype(np.float32)
+        damp = (tr * np.float32(1.66666666e-07) + np.float32(1e-20)).astype(
+            np.float32)
+        c = (c + np.eye(6, dtype=np.float32) * damp[:, None, None]).astype(
+            np.float32)
+    b = rng.normal(size=(count, 6)).astype(np.float32)
+    return c, b
+
+
+def test_fma_and_lu6_kernels_bit_identical_to_plain(cuda):
+    """The library's other two kernels on the card: ``pairsum.fma``
+    against gnn._fma32 on broadcast operands, and ``lu6.solve`` against
+    ``lu6.solve_ref`` on tests/test_torch_lu6.py's systems of every
+    kind."""
+    from rescan_tpu_torch.ops import lu6, pairsum
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.normal(size=(64, 1)).astype(np.float32)).to(cuda)
+    b, c = (torch.from_numpy(rng.normal(size=(64, 4096)).astype(np.float32))
+            .to(cuda) for _ in "bc")
+    pairsum.reset_counts()
+    got = pairsum.fma(a, b, c)
+    assert pairsum.LAUNCHES["fma"] == 1
+    want = gnn._fma32(a.expand_as(b), b, c)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for kind in ("spd", "icp", "general", "singular"):
+        cm, rhs = (torch.from_numpy(v).to(cuda) for v in lu6_systems(kind, 3))
+        assert lu6.same_bits(lu6.solve(cm, rhs), lu6.solve_ref(cm, rhs)), kind
+    assert pairsum.LAUNCHES["lu6"] == 4
+
+
+def _wavy_surface(rng, n):
+    """tests/test_torch_icp.py's surface: points on a wavy sheet with its
+    analytic normals."""
+    xy = rng.uniform(0, 2, (n, 2)).astype(np.float32)
+    z = 0.3 * np.sin(2.0 * xy[:, 0]) + 0.2 * np.cos(3.0 * xy[:, 1])
+    pts = np.stack([xy[:, 0], xy[:, 1], z], 1).astype(np.float32)
+    nrm = np.stack([-0.6 * np.cos(2.0 * xy[:, 0]),
+                    0.6 * np.sin(3.0 * xy[:, 1]),
+                    np.ones(n, np.float32)], 1)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return pts, nrm.astype(np.float32)
+
+
+def test_icp_on_card_matches_cpu(cuda):
+    """tests/test_torch_icp.py's two-object, 8-pair batch (an
+    ill-conditioned pair among them, a padding pair) through the ICP on
+    the card (K2, pairsum, fma and lu6) and on the CPU (their plain
+    versions): every pose and error bit for bit, the same iteration count
+    and final active set. Every division by a constant divides by a
+    device tensor (ops/icp.py ``div``); what could still part the two is
+    the rotation's cos and sin, the card's f64 values against the CPU's,
+    each rounded to f32 (an f64 ulp apart at most, which rounding to f32
+    hides but on a 2^-29 share of arguments)."""
+    from rescan_tpu_torch.ops import icp, pairsum
+    rng = np.random.default_rng(12345)
+    scene_pts, scene_nrm = _wavy_surface(rng, 2500)
+    upts, unrm, umask = icp.prep_unique_batch(
+        [scene_pts[:700], scene_pts[900:1500]],
+        [scene_nrm[:700], scene_nrm[900:1500]])
+    own = np.array([k % 2 for k in range(8)], np.int32)
+    val = np.ones(8, bool)
+    val[-1] = False
+    T0 = np.tile(np.eye(4, dtype=np.float32), (8, 1, 1))
+    for k in range(8):
+        a = 0.002 * (k + 1) ** 2
+        T0[k, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        T0[k, :3, 3] = [0.004 * k, -0.003 * k, 0.0]
+    out = {}
+    for dev in ("cpu", cuda):
+        slab = gnn.build_sorted_slab(scene_pts, scene_nrm, tile=1024,
+                                     device=dev)
+        gnn.reset_counts()
+        pairsum.reset_counts()
+        T, err, act, n_iter = icp.icp_align_indexed(
+            *(torch.from_numpy(a).to(dev) for a in (upts, unrm, umask, own,
+                                                    val)),
+            slab, torch.from_numpy(T0).to(dev), 0.10, np.deg2rad(60.0))
+        launched = gnn.LAUNCHES["nearest_gated"] and min(
+            pairsum.LAUNCHES.values())
+        assert bool(launched) == (dev != "cpu")
+        out[str(dev)] = (T.cpu().numpy(), err.cpu().numpy(),
+                         act.cpu().numpy(), n_iter)
+    (tc, ec, ac, nc), (tg, eg, ag, ng) = out.values()
+    assert nc == ng and 6 < nc < 100
+    np.testing.assert_array_equal(ag, ac)
+    np.testing.assert_array_equal(tg, tc)
+    np.testing.assert_array_equal(eg, ec)

@@ -22,7 +22,7 @@ from rescan_tpu.utils import synthetic
 from rescan_tpu_torch import sequences
 from rescan_tpu_torch.core.pointcloud import PointCloud as TPointCloud
 from rescan_tpu_torch.io import rsdb as trsdb
-from rescan_tpu_torch.ops import gnn, icp as ticp, labels as tlabels
+from rescan_tpu_torch.ops import gnn, icp as ticp, labels as tlabels, pairsum
 from rescan_tpu_torch.ops import score as tscore
 from rescan_tpu_torch.parallel import mesh as tmesh
 from rescan_tpu_torch.pipeline import driver as tdriver
@@ -127,12 +127,13 @@ def test_default_devices_without_card_raise(monkeypatch):
 
 
 def test_cross_sum_under_thread_switching():
-    """16 slots (more than the cores) adding rank-dependent partials for
-    many rounds with a tiny switch interval: every rank gets every
-    round's exact total, and the launch counter loses no update."""
+    """16 slots (more than the cores) chaining rank-dependent runs of
+    points for many rounds with a tiny switch interval: every rank gets
+    every round's exact total, and the launch counter loses no update."""
     n, rounds = 16, 60
     m = tmesh.Mesh(["cpu"] * n, sp=n)
     group = tmesh._CrossSum(m, range(n))
+    spec = [(pairsum.WINDOW, 0, pairsum.ONE)]
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     gnn.reset_counts()
@@ -141,8 +142,8 @@ def test_cross_sum_under_thread_switching():
             hook = group.hook(i)
             got = []
             for k in range(rounds):
-                (t,) = hook(torch.full((3,), float(i * rounds + k)))
-                got.append(t.clone())
+                t = hook(torch.full((3, 1, 1), float(i * rounds + k)), spec)
+                got.append(t[:, 0].clone())
                 gnn._count(gnn.PLAIN_CALLS, "gated_min")
             return torch.stack(got)
         out = m.run(work)
@@ -166,7 +167,8 @@ def test_failed_rank_does_not_hang_its_row():
         try:
             if i == 2:
                 raise KeyError("rank 2")
-            return group.hook(i)(torch.ones(1))
+            return group.hook(i)(torch.ones(1, 1, 1),
+                                 [(pairsum.WINDOW, 0, pairsum.ONE)])
         except BaseException:
             group.barrier.abort()
             raise
@@ -315,9 +317,15 @@ def icp_case():
 
 
 def test_icp_indexed_sharded(icp_case):
-    """Pairs over 8 slots: identical to the port's single loop; within
-    1e-5 of JAX's icp_refine_indexed_sharded on 8 devices (same slab),
-    and JAX's loop stops at the port's iteration count."""
+    """Pairs over 8 slots: identical to the port's single loop, and within
+    1e-6 of JAX's single-device loop, which stops at the port's iteration
+    count. JAX's icp_refine_indexed_sharded on 8 devices hands each device
+    one pair, and XLA compiles a launch of one pair with other sums
+    (ops/pairsum.py), more than 1e-5 away from its own single-device loop
+    here (1.1e-4 on pairs 0 and 4): the port's ICP of each pair alone,
+    which takes the one-pair orders, is within 1e-5 of it (same slab).
+    The port's mesh keeps the many-pair orders: the stages mesh only
+    batches that the JAX package pads to 256 pairs."""
     _, (upts, unrm, umask, own, val, T0), js, slab = icp_case
     m = tmesh.make_flat_mesh(devices=CPU8)
     T_sh, err_sh = tmesh.icp_refine_indexed_sharded(
@@ -331,10 +339,19 @@ def test_icp_indexed_sharded(icp_case):
     jT, _ = jmesh.icp_refine_indexed_sharded(
         jmesh.make_flat_mesh(8), js, upts, unrm, umask, own, val, T0, 0.1,
         MAX_ANGLE)
-    np.testing.assert_allclose(T_sh, jT, rtol=0, atol=1e-5)
+    T_one = np.stack([ticp.icp_align_indexed(
+        *(torch.from_numpy(a) for a in (upts, unrm, umask, own[k:k + 1],
+                                        val[k:k + 1])), slab,
+        torch.from_numpy(T0[k:k + 1]), 0.1, MAX_ANGLE)[0][0].numpy()
+        for k in range(len(T0))])
+    np.testing.assert_allclose(T_one, jT, rtol=0, atol=1e-5)
     jargs = (jnp.asarray(upts), jnp.asarray(unrm), jnp.asarray(umask),
              jnp.asarray(own), jnp.asarray(val), js, jnp.asarray(T0), 0.1,
              MAX_ANGLE)
+    jS = np.asarray(jicp.icp_align_indexed(*jargs)[0])
+    np.testing.assert_allclose(T_sh, jS, rtol=0, atol=1e-6)
+    # JAX's mesh is not its single-device loop
+    assert np.abs(np.asarray(jT) - jS).max() > 1e-5
     _, _, jact = jicp.icp_align_indexed(*jargs, max_iter=n_iter)
     assert not np.asarray(jact).any()
     _, _, jact = jicp.icp_align_indexed(*jargs, max_iter=n_iter - 1)
@@ -343,20 +360,30 @@ def test_icp_indexed_sharded(icp_case):
 
 def test_icp_batched_sharded(icp_case):
     """The materialised batch over 8 slots: identical to the port's
-    icp_align_batched, and within 1e-5 of JAX's icp_refine_sharded."""
+    icp_align_batched, and within 1e-6 of JAX's icp_align_batched; with
+    the one-pair orders of JAX's 8 devices (each pair alone, see
+    test_icp_indexed_sharded), within 1e-5 of JAX's icp_refine_sharded."""
     _, (upts, unrm, umask, own, _, T0), js, slab = icp_case
     pb, nb, mb = upts[own], unrm[own], umask[own]
-    T_sh, err_sh = tmesh.icp_refine_sharded(
-        tmesh.make_flat_mesh(devices=CPU8), slab, pb, nb, mb, T0, 0.1,
-        MAX_ANGLE)
+    m = tmesh.make_flat_mesh(devices=CPU8)
+    T_sh, err_sh = tmesh.icp_refine_sharded(m, slab, pb, nb, mb, T0, 0.1,
+                                            MAX_ANGLE)
     tT, terr = ticp.icp_align_batched(
         *(torch.from_numpy(a) for a in (pb, nb, mb)), slab,
         torch.from_numpy(T0), 0.1, MAX_ANGLE)
     np.testing.assert_array_equal(T_sh, tT.numpy())
     np.testing.assert_array_equal(err_sh, terr.numpy())
+    jS, _ = jicp.icp_align_batched(jnp.asarray(pb), jnp.asarray(nb),
+                                   jnp.asarray(mb), js, jnp.asarray(T0), 0.1,
+                                   MAX_ANGLE)
+    np.testing.assert_allclose(T_sh, np.asarray(jS), rtol=0, atol=1e-6)
     jT, _ = jmesh.icp_refine_sharded(jmesh.make_mesh(8), js, pb, nb, mb, T0,
                                      0.1, MAX_ANGLE)
-    np.testing.assert_allclose(T_sh, jT, rtol=0, atol=1e-5)
+    T_one = np.stack([ticp.icp_align_batched(
+        *(torch.from_numpy(a[k:k + 1]) for a in (pb, nb, mb)), slab,
+        torch.from_numpy(T0[k:k + 1]), 0.1, MAX_ANGLE)[0][0].numpy()
+        for k in range(len(T0))])
+    np.testing.assert_allclose(T_one, jT, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_slots,sp", [(8, 2), (8, 4), (4, 2)])

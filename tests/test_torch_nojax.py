@@ -54,8 +54,13 @@ sm = score.score_requests(index, [(pts[:200] - 0.5, nrm[:200],
 Tm, _ = mesh.icp_refine_indexed_dpsp(m, index, pb, nb, mb, [0], [True],
                                      np.eye(4, dtype=np.float32)[None], 0.1,
                                      np.deg2rad(60.0))
+# the mesh sums in the many-pair orders (parallel/mesh.py)
+T1 = icp.icp_align_indexed(pb, nb, mb, torch.zeros(1, dtype=torch.long),
+                           torch.ones(1, dtype=torch.bool), index,
+                           torch.eye(4)[None], 0.1, np.deg2rad(60.0),
+                           single=False)[0]
 assert np.array_equal(sm, s), (sm, s)
-assert np.array_equal(Tm, T.numpy()), (Tm, T)
+assert np.array_equal(Tm, T1.numpy()), (Tm, T1)
 from rescan_tpu_torch.core import native
 from rescan_tpu_torch.pipeline import create_eval_files, seg2rsdb
 from rescan_tpu_torch.eval import (instance_transfer, semantic_instance,

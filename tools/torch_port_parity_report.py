@@ -2,21 +2,30 @@
 
     JAX_PLATFORMS=cpu python tools/torch_port_parity_report.py icp [--pair 1]
     JAX_PLATFORMS=cpu python tools/torch_port_parity_report.py small3 [--device cpu]
+    python tools/torch_port_parity_report.py engines
 
 ``icp``: the two-object, 8-pair indexed ICP batch of tests/test_icp.py on
-one slab through both packages: per pair, the pose difference and each
-side's iteration count; then, for one pair, each intermediate of an ICP
-step (JAX's step body re-run under jit on the port's correspondences,
-which are bit-identical) at the states of iterations 1 and 2, and the
-difference of the 6x6 solves that follow (ROADMAP Queue 3).
+one slab through both packages: per pair, the pose and error differences
+and each side's iteration count; then one port step from each of JAX's
+first states (the correspondences are bit-identical) and how far it lands
+from JAX's next state, for every pair and for ``--pair`` (ROADMAP
+Queue 3).
 
 ``small3``: the port's driver and evaluators over the small 3-scan
-sequence on ``--device``, against tests/data/torch_port_small3_ref.npz:
-each rescan's largest differences, the tolerance breaches, the metrics;
+sequence on ``--device``, against the JAX package's runs on the sorted
+slab and on the CPU's HashGrid (tests/data/torch_port_small3{_slab,}_ref
+.npz): each rescan's largest differences, the tolerance breaches, the
+metrics;
 and what the tolerances in rescan_tpu_torch/sequences.py rest on — the
 level-1 sizes of the object models rescan 2 starts from, the level-1
 points and class sizes per rescan, and each prediction's overlap with
 its GT instance against the nearest AP threshold.
+
+``engines``: the JAX package's own two runs of each committed sequence,
+on the sorted slab and on the CPU's HashGrid, against each other (the
+small 3-scan sequence's rescans, and the bench rescan): how far its two
+search engines part, which rescan_tpu_torch/sequences.py's OTHER_ENGINE
+limits rest on. Reads the committed files only.
 """
 
 from __future__ import annotations
@@ -31,6 +40,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 REF3 = os.path.join(ROOT, "tests", "data", "torch_port_small3_ref.npz")
+REF3_SLAB = os.path.join(ROOT, "tests", "data",
+                         "torch_port_small3_slab_ref.npz")
+BENCH = os.path.join(ROOT, "tests", "data", "torch_port_bench_ref.npz")
+BENCH_SLAB = os.path.join(ROOT, "tests", "data",
+                          "torch_port_bench_slab_ref.npz")
 
 
 def _iterations(run, n_pairs: int) -> np.ndarray:
@@ -46,14 +60,12 @@ def _iterations(run, n_pairs: int) -> np.ndarray:
 
 
 def icp_report(pair: int) -> None:
-    import jax
     import jax.numpy as jnp
     import torch
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_icp as fx
     from rescan_tpu.ops import icp as jicp
     from rescan_tpu_torch.ops import icp as ticp, search
-    from rescan_tpu_torch.ops.reduce import tree_sum
 
     scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
         fx._indexed_case(12345)
@@ -67,116 +79,40 @@ def icp_report(pair: int) -> None:
         return ticp.icp_align_indexed(*targs, slab, torch.from_numpy(T0),
                                       0.10, fx.MAX_ANGLE, max_iter=k)
 
-    jT = np.asarray(jicp.icp_align_indexed(*jargs)[0])
-    tT = port(100)[0].numpy()
+    jT, jerr, _ = (np.asarray(x) for x in jicp.icp_align_indexed(*jargs))
+    tT, terr = (x.numpy() for x in port(100)[:2])
     ji = _iterations(lambda k: np.asarray(
         jicp.icp_align_indexed(*jargs, max_iter=k)[2]), len(T0))
     ti = _iterations(lambda k: port(k)[2].numpy(), len(T0))
-    print("pair  pose diff   iterations (JAX, port)")
+    print("pair  pose diff   err diff   iterations (JAX, port)")
     for p in range(len(T0)):
-        print(f"{p:4d}  {np.abs(tT[p] - jT[p]).max():.3g}   {ji[p]}, {ti[p]}")
+        print(f"{p:4d}  {np.abs(tT[p] - jT[p]).max():.3g}   "
+              f"{abs(float(terr[p] - jerr[p])):.3g}   {ji[p]}, {ti[p]}")
 
     obj_pts = targs[0][own]
     obj_nrm = targs[1][own]
     obj_mask = targs[2][own] & targs[4][:, None]
     scene_p, scene_n = search.index_arrays(slab)
-    B, N, _ = obj_pts.shape
-
-    @jax.jit
-    def jstep(T, idx, d2, dot, dist):
-        # icp.py:122-165, the JAX step body up to the normal system
-        q = jnp.einsum("bij,bnj->bni", T[:, :3, :3], J(obj_pts.numpy())) \
-            + T[:, None, :3, 3]
-        ok = (idx >= 0) & J(obj_mask.numpy())
-        p2 = J(scene_p.numpy())[jnp.maximum(idx, 0)]
-        n2 = J(scene_n.numpy())[jnp.maximum(idx, 0)]
-        w = jnp.where(ok, (1.0 - d2 / dist) * dot, 0.0)
-        cnt = jnp.maximum(jnp.sum(ok, axis=1), 1)
-        mean = jnp.sum(jnp.where(ok, d2, 0.0), axis=1) / cnt
-        std = jnp.sqrt(jnp.sum(jnp.where(ok, (d2 - mean[:, None]) ** 2, 0.0),
-                               axis=1) / cnt)
-        w = jnp.where((std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None]),
-                      w, 0.0)
-        wsum = jnp.sum(w, axis=1)
-        wsafe = jnp.maximum(wsum, 1e-30)
-        c1 = jnp.einsum("bn,bni->bi", w, q) / wsafe[:, None]
-        c2 = jnp.einsum("bn,bni->bi", w, p2) / wsafe[:, None]
-        d = (q - c1[:, None, :]) - (p2 - c2[:, None, :])
-        ddn = jnp.einsum("bni,bni->bn", d, n2)
-        j6 = jnp.concatenate([jnp.cross(q - c1[:, None, :], n2), n2], -1)
-        return dict(std=std, wsum=wsum, c1=c1, c2=c2,
-                    C=jnp.einsum("bn,bni,bnj->bij", w, j6, j6),
-                    b=-jnp.einsum("bn,bni,bn->bi", w, j6, ddn),
-                    e2=jnp.einsum("bn,bn->b", w, ddn * ddn))
-
-    def tstep(T, idx, d2, dot, dist):
-        # the port's _icp_step, the same quantities
-        q = torch.einsum("bij,bnj->bni", T[:, :3, :3], obj_pts) \
-            + T[:, None, :3, 3]
-        ok = (idx >= 0) & obj_mask
-        p2, n2 = scene_p[idx.clamp_min(0)], scene_n[idx.clamp_min(0)]
-        w = torch.where(ok, (1.0 - d2 / float(dist)) * dot, 0.0)
-        cnt = ok.sum(1).clamp_min(1)
-        mean = tree_sum(torch.where(ok, d2, 0.0)) / cnt
-        std = torch.sqrt(tree_sum(torch.where(
-            ok, (d2 - mean[:, None]) ** 2, 0.0)) / cnt)
-        w = torch.where((std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None]),
-                        w, 0.0)
-        s3 = tree_sum(torch.cat([w[..., None], w[..., None] * q,
-                                 w[..., None] * p2], -1))
-        wsafe = s3[:, 0].clamp_min(1e-30)
-        c1, c2 = s3[:, 1:4] / wsafe[:, None], s3[:, 4:7] / wsafe[:, None]
-        d = (q - c1[:, None, :]) - (p2 - c2[:, None, :])
-        ddn = d[..., 0] * n2[..., 0] + d[..., 1] * n2[..., 1] \
-            + d[..., 2] * n2[..., 2]
-        j6 = torch.cat([torch.linalg.cross(q - c1[:, None, :], n2), n2], -1)
-        wj6 = w[..., None] * j6
-        return dict(std=std, wsum=s3[:, 0], c1=c1, c2=c2,
-                    C=tree_sum((wj6[..., :, None] * j6[..., None, :])
-                               .reshape(B, N, 36)).reshape(B, 6, 6),
-                    b=-tree_sum(j6 * (w * ddn)[..., None]),
-                    e2=tree_sum(w * (ddn * ddn)))
-
-    def solve(C, b):
-        C = torch.as_tensor(np.asarray(C)).double()
-        tr = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1)[:, None, None]
-        C = C + torch.eye(6, dtype=C.dtype)[None] * (1e-6 * tr / 6.0 + 1e-20)
-        x = torch.linalg.solve(C, torch.as_tensor(np.asarray(b)).double()
-                               [..., None])[..., 0]
-        return x, torch.linalg.cond(C)
-
-    T = T0
+    T, err = J(T0), J(np.full(len(T0), 1e6, np.float32))
+    # a JAX loop resumed at a state restarts every valid pair as active
+    active = torch.from_numpy(umask[own].any(1) & val)
     dist = np.float32(0.10)
-    for it in (1, 2):
-        Tt = torch.from_numpy(np.array(T))
-        q = torch.einsum("bij,bnj->bni", Tt[:, :3, :3], obj_pts) \
-            + Tt[:, None, :3, 3]
-        qn = torch.einsum("bij,bnj->bni", Tt[:, :3, :3], obj_nrm)
-        idx, d2, dot = search.nearest_gated(
-            slab, q.reshape(B * N, 3), qn.reshape(B * N, 3), dist,
-            ticp.cos_gate_of(fx.MAX_ANGLE))
-        idx, d2, dot = idx.reshape(B, N).long(), d2.reshape(B, N), \
-            dot.reshape(B, N)
-        a = jax.device_get(jstep(J(np.array(T)), J(idx.numpy().astype(
-            np.int32)), J(d2.numpy()), J(dot.numpy()), dist))
-        b = tstep(Tt, idx, d2, dot, dist)
-        print(f"pair {pair}, iteration {it} (JAX's state):")
-        for k in ("std", "wsum", "c1", "c2", "C", "b", "e2"):
-            x, y = np.asarray(a[k])[pair], b[k].numpy()[pair]
-            diff = float(np.abs(x - y).max())
-            print(f"  {k:4s} max diff {diff:.3g}, relative "
-                  f"{diff / max(float(np.abs(x).max()), 1e-30):.3g}")
-        xj, cond = solve(a["C"], a["b"])
-        xt, _ = solve(b["C"].numpy(), b["b"].numpy())
-        print(f"  step x (f64 solves of each side's C, b): max diff "
-              f"{float((xj[pair] - xt[pair]).abs().max()):.3g} of "
-              f"{float(xj[pair].abs().max()):.3g}, cond(C) "
-              f"{float(cond[pair]):.3g}")
-        T = np.asarray(jicp.icp_align_indexed(*jargs, max_iter=it)[0])
+    print(f"one port step from JAX's state (pair {pair}; all pairs):")
+    for k in range(int(ji.max())):
+        nT, nerr, _ = (np.asarray(x) for x in jicp.icp_align_indexed(
+            *jargs[:6], T, dist, fx.MAX_ANGLE, max_iter=k + 1,
+            err_init=err, it_init=k))
+        sT, serr, _ = ticp._icp_step(
+            obj_pts, obj_nrm, obj_mask, slab, scene_p, scene_n,
+            torch.from_numpy(np.array(T)), torch.from_numpy(np.array(err)),
+            dist, active, k, ticp.cos_gate_of(fx.MAX_ANGLE))
+        d = np.abs(sT.numpy() - nT).max(axis=(1, 2))
+        print(f"  iteration {k + 1}: pose diff {d[pair]:.3g}, err diff "
+              f"{abs(float(serr[pair] - nerr[pair])):.3g}; bit-identical "
+              f"pairs {int((d == 0).sum())} of {len(d)}")
+        T, err = J(nT), J(nerr)
         dist = np.maximum(np.float32(dist * np.float32(0.95)),
                           np.float32(0.05))
-        print(f"  pose diff after iteration {it} (each loop on its own): "
-              f"{np.abs(port(it)[0].numpy()[pair] - T[pair]).max():.3g}")
 
 
 def small3_report(device: str) -> None:
@@ -201,11 +137,14 @@ def small3_report(device: str) -> None:
         os.chdir(cwd)
     ref = dict(np.load(REF3))
     got = sequences.sequence_outputs(root)
-    for k, sub in enumerate(sequences.rescans(root)):
-        r = sequences.split_outputs(ref, sub)
-        g = sequences.split_outputs(got, sub)
-        print(f"{sub}: {sequences.output_diffs(r, g)}; breaches "
-              f"{sequences.compare_outputs(r, g, augmented=k > 0)}")
+    for name, path in (("slab", REF3_SLAB), ("HashGrid", REF3)):
+        src = dict(np.load(path))
+        for sub in sequences.rescans(root):
+            r = sequences.split_outputs(src, sub)
+            g = sequences.split_outputs(got, sub)
+            print(f"{sub} vs the JAX package's {name} run: "
+                  f"{sequences.output_diffs(r, g)}; breaches "
+                  f"{sequences.compare_outputs(r, g)}")
     metrics = sequences.evaluate_sequence(root, device=device)
     for k in sequences.METRICS:
         print(f"{k}: port {metrics[k]!r}, JAX {float(ref['metric/' + k])!r}")
@@ -234,6 +173,23 @@ def small3_report(device: str) -> None:
                           f"points)")
 
 
+def engines_report() -> None:
+    from rescan_tpu_torch import sequences
+    slab, grid = dict(np.load(REF3_SLAB)), dict(np.load(REF3))
+    pairs = [(f"small 3-scan {sub}", sequences.split_outputs(slab, sub),
+              sequences.split_outputs(grid, sub))
+             for sub in ("scan_001", "scan_002")]
+    if os.path.exists(BENCH_SLAB):
+        pairs.append(("bench", dict(np.load(BENCH_SLAB)),
+                      dict(np.load(BENCH))))
+    else:
+        print(f"no {os.path.relpath(BENCH_SLAB, ROOT)}")
+    for name, s, g in pairs:
+        print(f"{name}, slab run vs HashGrid run: "
+              f"{sequences.output_diffs(s, g)}; breaches at the "
+              f"other-engine limits {sequences.compare_outputs(s, g, True)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -241,11 +197,14 @@ def main(argv=None) -> int:
     a.add_argument("--pair", type=int, default=1)
     b = sub.add_parser("small3")
     b.add_argument("--device", default="cpu")
+    sub.add_parser("engines")
     args = ap.parse_args(argv)
     if args.what == "icp":
         icp_report(args.pair)
-    else:
+    elif args.what == "small3":
         small3_report(args.device)
+    else:
+        engines_report()
     return 0
 
 
