@@ -8,8 +8,9 @@ result lines:
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
 2. build   — the native host library and the two CUDA libraries (gated NN;
-             per-pair sums, fma and the 6x6 solve), from this checkout's
-             sources, the three
+             per-pair sums, fma chains, the 6x6 solve, XLA's f32 math and
+             scoring's per-point terms), from this checkout's sources,
+             the three
              compilers started together; ptxas's report and, per gated-NN
              instantiation, its residency (CTAs per SM by the occupancy
              calculator, registers, shared and local bytes);
@@ -27,10 +28,14 @@ result lines:
              pairsum (the ICP's and scoring's per-pair sums in the JAX
              package's order) against its plain version, bit for bit: random
              rows of every kind up to 32768 points, whole and chained over
-             runs of points,
+             runs of points, the one-pair FOLDED kinds at 128 and 256,
              and the ICP step's two heavy rounds at the bench ICP launch's
-             shape (64 pairs), with kernel, plain and library times and
-             the bound;
+             shape (64 pairs), with kernel, plain and torch.bmm times, the
+             byte bound and the CHAIN sums' latency floor; the fma chains
+             (scoring's two transforms at 4,194,304 points) and the score
+             terms (at the bench K1 scoring launch) against their plain
+             versions and torch.addcmul; the XLA-math kernel's operations
+             on 1,048,576 arguments against their plain versions;
 4. parity  — the port's driver over the small 2-scan sequence, held to
              the JAX package's committed outputs
              (tests/data/torch_port_small_ref.npz);
@@ -47,9 +52,12 @@ result lines:
              sums this step had before; the label transfer's
              K2 launches of that run are recorded and then held to the
              plain version and measured as the bench launches of phase 3
-             are, and so is the first pairsum, fma and lu6 launch of
-             every shape of that run (fma and lu6 measured at their
-             largest, beside torch.addcmul and torch.linalg.solve);
+             are, and so is the first launch of every shape of that run
+             of pairsum, the fma chains, lu6, the XLA math and the score
+             terms (each measured at its largest, beside torch.addcmul or
+             torch.linalg.solve where one call computes it); the rescan's
+             distance from the slab run, the fma-family launches, and the
+             augmentation ICP's placements of 256 points or fewer;
 6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
              slots on cuda:0, or over the visible cards when there are 2
              or more. (a) the small sequence held to the committed JAX
@@ -62,7 +70,7 @@ result lines:
              correctness; it is no scaling figure;
 7. eval    — the evaluation and viewing path on [cuda:0]. (a) the small
              3-scan sequence through the driver with eval files, both
-             rescans held, at one set of tolerances, to the JAX package's
+             rescans held bit for bit to the JAX package's
              committed run on the sorted slab
              (tests/data/torch_port_small3_slab_ref.npz), both also to its
              run on the CPU's HashGrid (rescan 2's lower-ranked proposals
@@ -89,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -108,13 +117,17 @@ import torch  # noqa: E402
 KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
 PAIRSUM_SOURCE = "rescan_tpu_torch/ops/csrc/pairsum.cu"
-SOURCES = {"pairsum": PAIRSUM_SOURCE, "fma": PAIRSUM_SOURCE,
-           "lu6": PAIRSUM_SOURCE}
-# no Pallas kernel: XLA's compiled arithmetic of the ICP step: its sums
-# (from the first), its fused products (from the first), its 6x6 solve
+PORT_KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms")
+SOURCES = dict.fromkeys(PORT_KERNELS, PAIRSUM_SOURCE)
+# no Pallas kernel: XLA's compiled arithmetic of the ICP step and of
+# scoring: the step's sums (from the first), its fused products (from the
+# first), its 6x6 solve, the rotation's cos and sin (XLA's f32 functions),
+# scoring's per-point terms
 REPLACES_OF = {"pairsum": "rescan_tpu/ops/icp.py:132",
                "fma": "rescan_tpu/ops/icp.py:101",
-               "lu6": "rescan_tpu/ops/icp.py:162"}
+               "lu6": "rescan_tpu/ops/icp.py:162",
+               "xla_math": "rescan_tpu/ops/icp.py:43",
+               "score_terms": "rescan_tpu/ops/score.py:160"}
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
 REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
 REF3_SLAB_NPZ = os.path.join(HERE, "tests", "data",
@@ -135,6 +148,9 @@ FP32_FLOP_PER_S = 67e12
 # FP32 work of one pair within r: d2 (3 subtractions, a multiply, two
 # FMAs = 8 flops) and the normal dot (a multiply, two FMAs = 5 flops)
 FLOP_PER_PAIR = 13
+# a dependent FP32 FMA's latency on Hopper, in cycles: the floor of a
+# chain of n of them is n * 4 cycles at the SM clock
+FMA_LATENCY_CYCLES = 4
 
 
 def say(phase: str, msg: str) -> None:
@@ -148,9 +164,74 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True)
+    return float(r.stdout.strip().splitlines()[0])
+
+
+# the spin kernel that a timed run of calls is queued behind, in seconds at
+# the highest SM clock: longer than the host takes to queue the calls
+SPIN_SECONDS = 0.02
+# how every kernel's and library call's ms is measured (queued_ms)
+TIMING = ("CUDA events around back-to-back calls queued behind a spin "
+          "kernel")
+
+
+def queued_ms(fn, reps: int = 20) -> tuple:
+    """(mean device milliseconds of one call of ``fn``, calls made): CUDA
+    events around ``reps`` back-to-back calls after one warm-up, queued
+    behind a spin kernel (torch.cuda._sleep) so that the card runs them
+    one after another with none of the host's work between them. Kernel
+    wrappers and library calls are timed alike. Where the spin ended
+    before the last call was queued (a call that waited on the card, or a
+    host slower than the spin), the run is made again behind a spin four
+    times longer; after three runs this fails: no other measure takes its
+    place."""
+    fn()
+    torch.cuda.synchronize()
+    calls = 1
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    cycles = int(SPIN_SECONDS * sm_clock_mhz() * 1e6)
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        hidden = not a.query()
+        calls += reps
+        torch.cuda.synchronize()
+        if hidden:
+            return a.elapsed_time(b) / reps, calls
+        cycles *= 4
+    raise SystemExit(f"[timing] FAIL: {reps} calls were not queued within "
+                     f"a spin of {cycles // 4} cycles")
+
+
+def _launched(counter: str) -> int:
+    return _counts()[0][counter]
+
+
+def kernel_ms(kern, counter: str, reps: int = 20) -> float:
+    """queued_ms of a kernel wrapper that launches the kernel counted as
+    ``counter`` once a call; fails where the count moved otherwise."""
+    n0 = _launched(counter)
+    ms, calls = queued_ms(kern, reps)
+    if _launched(counter) - n0 != calls:
+        raise SystemExit(f"[timing] FAIL: {calls} calls launched "
+                         f"{_launched(counter) - n0} {counter} kernels")
+    return ms
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` runs after one
-    warm-up, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up, by
+    CUDA events around the calls: the host's work between launches and
+    any wait on the card included (plain versions)."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -355,9 +436,16 @@ def phase_kernels(cuda, bench_root) -> dict:
     err["pairsum"] = _pairsum_random(cuda)
     n_pts = launches["K2 ICP"][2].shape[0] // ICP_PAIRS
     icp_rows = [_pairsum_row(cuda, r, ICP_PAIRS, n_pts) for r in (3, 4)]
+    # the longest sums the path runs: the refine-to-scene launch of 30
+    # pairs and a one-pair augmentation launch, 32768 points each
+    icp_rows += [_pairsum_row(cuda, 4, 30, 32768),
+                 _pairsum_row(cuda, 4, 1, 32768, single=True)]
     err["pairsum"] = max([err["pairsum"]] + [r["max_abs_err"]
                                              for r in icp_rows])
     rows["pairsum"] = icp_rows[1]
+    rows["fma"] = _fma_row(cuda)
+    rows["score_terms"] = _score_terms_row(cuda, launches["K1 scoring"])
+    _xla_math_rows(cuda)
     return {"err": err, "rows": rows}
 
 
@@ -368,10 +456,13 @@ def _pairsum_random(cuda) -> float:
     bit. Returns max |kernel - plain| of the sums."""
     from rescan_tpu_torch.ops import pairsum
     from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
-                                              LANES, LANES_TAIL, ONE, WINDOW)
+                                              FOLDED, FOLDED_TAIL, LANES,
+                                              LANES_TAIL, ONE, WINDOW)
     spec = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (BLOCKED, 1, 2),
             (WINDOW, 3, ONE), (CHAIN, 2, 3), (LANES, 0, 1),
             (LANES_TAIL, 2, 3), (LANES_TAIL, 1, ONE), (BLOCKED_TAIL, 0, 3)]
+    small = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (LANES_TAIL, 1, 2),
+             (BLOCKED_TAIL, 2, 3)]
     rng = np.random.default_rng(2)
     err = 0.0
     for n, parts in ((128, 1), (1024, 1), (2048, 1), (4096, 1), (4096, 4),
@@ -380,33 +471,51 @@ def _pairsum_random(cuda) -> float:
                               * (rng.random((7, n, 4)) < 0.8))
                              .astype(np.float32)).to(cuda)
         m = n // parts
-        sk = sp = None
-        for k in range(parts):
-            xs = x[:, k * m:(k + 1) * m].contiguous()
-            sk = pairsum.pairsum(xs, spec, k * m, n, sk)
-            sp = pairsum.pairsum_ref(xs, spec, k * m, n, sp)
-        _, e = _compare(f"pairsum random n={n} in {parts} runs",
-                        (pairsum.totals(sk, spec, n), sk),
-                        (pairsum.totals(sp, spec, n), sp))
+        # the kernel's big shape (9 sums) and its small one (4 sums)
+        for sp_ in (spec, small):
+            sk = sp = None
+            for k in range(parts):
+                xs = x[:, k * m:(k + 1) * m].contiguous()
+                sk = pairsum.pairsum(xs, sp_, k * m, n, sk)
+                sp = pairsum.pairsum_ref(xs, sp_, k * m, n, sp)
+            _, e = _compare(f"pairsum random n={n} in {parts} runs, "
+                            f"{len(sp_)} sums",
+                            (pairsum.totals(sk, sp_, n), sk),
+                            (pairsum.totals(sp, sp_, n), sp))
+            err = max(err, e)
+    # the one-pair kinds of 128 and 256 points: the whole axis at once
+    for n in (128, 256):
+        x = torch.from_numpy((rng.normal(size=(7, n, 4))
+                              * (rng.random((7, n, 4)) < 0.8))
+                             .astype(np.float32)).to(cuda)
+        fspec = [(FOLDED, 0, 1), (FOLDED_TAIL, 2, 3), (FOLDED_TAIL, 1, ONE),
+                 (WINDOW, 3, ONE), (BLOCKED, 0, 2)]
+        sk, sp = pairsum.pairsum(x, fspec), pairsum.pairsum_ref(x, fspec)
+        _, e = _compare(f"pairsum FOLDED n={n}",
+                        (pairsum.totals(sk, fspec, n), sk),
+                        (pairsum.totals(sp, fspec, n), sp))
         err = max(err, e)
-    say("kernels", "pairsum random rows (every kind; 128 to 32768 points, "
-        "whole and in 2 or 4 chained runs): 0 mismatches")
+    say("kernels", "pairsum random rows (every kind, in the kernel's big and "
+        "small shapes; 128 to 32768 points, whole and in 2 or 4 chained "
+        "runs; the one-pair FOLDED kinds at 128 and 256): 0 mismatches")
     return err
 
 
 ICP_PAIRS = 64
 
 
-def _pairsum_row(cuda, round_: int, b: int, n: int) -> dict:
+def _pairsum_row(cuda, round_: int, b: int, n: int,
+                 single: bool = False) -> dict:
     """One of the ICP step's two heavy rounds of sums (3: w, w q, w p2;
-    4: the 6x6 system, b and the error) at the bench ICP launch's shape,
-    laid out and specified as ops/icp.py lays them out, on random rows
-    with a fifth of the weights zero: kernel against plain version bit
-    for bit, both timed, the library's Gram product of the same columns
-    (torch.bmm, one call), and the bound; prints one line."""
+    4: the 6x6 system, b and the error) at b pairs of n points, laid out
+    and specified as ops/icp.py lays them out (``single``: in the orders
+    of a launch of one pair), on random rows with a fifth of the weights
+    zero: kernel against plain version bit for bit, both timed, the
+    library's Gram product of the same columns (torch.bmm, one call), the
+    bound and the CHAIN sums' latency floor; prints one line."""
     from rescan_tpu_torch.ops import icp, pairsum
     rng = np.random.default_rng(round_)
-    spec = icp._specs(n, False)[round_ - 3]
+    spec = icp._specs(n, single)[round_ - 3]
     k = 7 if round_ == 3 else 15
     x = rng.normal(size=(b, n, k)).astype(np.float32)
     x[rng.random((b, n)) < 0.2] = 0.0
@@ -420,31 +529,176 @@ def _pairsum_row(cuda, round_: int, b: int, n: int) -> dict:
         return pairsum.pairsum_ref(x, spec)
 
     _, e = _compare(f"pairsum ICP round {round_}", (kern(),), (plain(),))
-    t_k = [cuda_ms(kern, 10)]
+    # kernel, plain, plain, kernel
+    t_k = [kernel_ms(kern, "pairsum")]
     t_p = [cuda_ms(plain, 1)]
     t_p.append(cuda_ms(plain, 1))
-    t_k.append(cuda_ms(kern, 10))
+    t_k.append(kernel_ms(kern, "pairsum"))
+    t_w = cuda_ms(kern, 10)
     xt = x.transpose(1, 2)
-    t_lib = cuda_ms(lambda: torch.bmm(xt, x), 10)
+    t_lib = queued_ms(lambda: torch.bmm(xt, x))[0]
     # the function reads every entry once and writes each pair's sums;
     # its work is one FMA (2 flops) per point per sum
     t_bytes = (x.numel() + b * q) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = b * n * q * 2 / FP32_FLOP_PER_S * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
+    # XLA's order holds a CHAIN sum (one segment over the whole axis) to n
+    # dependent FMAs, whatever the parallelism
+    chain = n * FMA_LATENCY_CYCLES / (sm_clock_mhz() * 1e6) * 1e3
     ms = min(t_k)
-    say("kernels", f"pairsum ICP round {round_} at the bench ICP launch's "
-        f"shape ({b} pairs x {n} points, {q} sums): 0 mismatches; kernel "
-        f"{ms:.4f} ms (runs {[round(t, 4) for t in t_k]}), plain "
-        f"{min(t_p):.3f} ms, torch.bmm Gram product {t_lib:.4f} ms; bound "
-        f"{bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of it")
+    say("kernels", f"pairsum ICP round {round_} at {b} pairs x {n} points "
+        f"({q} sums{', one-pair orders' if single else ''}): 0 mismatches; "
+        f"kernel {ms:.4f} ms (runs {[round(t, 4) for t in t_k]}; with the "
+        f"host's work between calls {t_w:.4f} ms), plain {min(t_p):.3f} ms, "
+        f"torch.bmm Gram product {t_lib:.4f} ms (same call, timed alike); "
+        f"bound {bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of "
+        f"it; the CHAIN sums' latency floor ({n} dependent FMAs of "
+        f"{FMA_LATENCY_CYCLES} cycles at {sm_clock_mhz():.0f} MHz) "
+        f"{chain:.5f} ms, kernel at {chain / ms:.5f} of it")
     row = {"kind": "pairsum", "round": round_, "pairs": b, "points": n,
-           "sums": q, "ms": ms, "ms_runs": t_k, "plain_ms": min(t_p),
+           "single": single, "sums": q, "ms": ms, "ms_runs": t_k,
+           "timing": TIMING, "wrapper_ms": t_w, "plain_ms": min(t_p),
            "plain_ms_runs": t_p, "library_ms": t_lib, "bound_ms": bound,
-           "bound_by": by, "share_of_bound": bound / ms, "max_abs_err": e}
-    print(json.dumps({"bench_launch": {f"pairsum ICP round {round_}": row}}),
-          flush=True)
+           "bound_by": by, "share_of_bound": bound / ms, "chain_ms": chain,
+           "max_abs_err": e}
+    print(json.dumps({"bench_launch": {
+        f"pairsum ICP round {round_}, {b} x {n}": row}}), flush=True)
     return row
+
+
+def _timed_row(what, kern, plain, library, n_bytes, n_flops, counter,
+               phase="kernels", **extra) -> dict:
+    """kernel, plain, plain, kernel times of one launch in this call (the
+    kernel by ``kernel_ms``, its launches counted as ``counter``; the
+    plain version by ``cuda_ms``), the kernel with the host's work between
+    calls, the library call's (``queued_ms``, as the kernel's) and the
+    bound (bytes over HBM3's rate against FP32 operations over the peak);
+    prints one line."""
+    t_k = [kernel_ms(kern, counter)]
+    t_p = [cuda_ms(plain, 2)]
+    t_p.append(cuda_ms(plain, 2))
+    t_k.append(kernel_ms(kern, counter))
+    t_w = cuda_ms(kern, 10)
+    t_lib = queued_ms(library)[0] if library else None
+    bound, by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (n_flops / FP32_FLOP_PER_S * 1e3, "operations"))
+    ms = min(t_k)
+    say(phase, f"{what}: kernel {ms:.4f} ms (runs "
+        f"{[round(t, 4) for t in t_k]}; with the host's work between calls "
+        f"{t_w:.4f} ms), plain {min(t_p):.4f} ms, library "
+        + (f"{t_lib:.4f} ms" if t_lib else "none")
+        + f" (same call, timed alike); bound {bound:.5f} ms ({by}), kernel "
+        f"at {bound / ms:.5f} of it")
+    row = {"ms": ms, "ms_runs": t_k, "timing": TIMING, "wrapper_ms": t_w,
+           "plain_ms": min(t_p), "plain_ms_runs": t_p, "library_ms": t_lib,
+           "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+           **extra}
+    print(json.dumps({"bench_launch": {what: row}}), flush=True)
+    return row
+
+
+def _fma_row(cuda) -> dict:
+    """The largest fma_chains launch of the main path at its shape: the
+    scoring launch's two transforms (R p + t and R n of 4,194,304 query
+    points, R and t broadcast over each hypothesis's points), held to the
+    plain chains bit for bit, beside torch.addcmul over the same six
+    output columns."""
+    from rescan_tpu_torch.ops import icp, pairsum, score
+    rng = np.random.default_rng(7)
+    pp = 512
+    h = score.MAX_QUERIES_PER_LAUNCH // pp
+    ang = rng.uniform(0, 2 * np.pi, h)
+    R = np.zeros((h, 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 2], R[:, 2, 0], R[:, 2, 2] = (
+        np.cos(ang), np.sin(ang), -np.sin(ang), np.cos(ang))
+    R[:, 1, 1] = 1
+    R, t, pts, nrm = (torch.from_numpy(a).to(cuda) for a in (
+        R, rng.uniform(-2, 2, (h, 3)).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (h, pp, 3)).astype(np.float32),
+        rng.normal(size=(h, pp, 3)).astype(np.float32)))
+
+    def chains():
+        def terms(v):
+            return [(R[:, None, :, j], v[..., j, None]) for j in range(3)]
+        return [pairsum.Chain(terms(pts), add=t[:, None, :]),
+                pairsum.Chain(terms(nrm))]
+
+    got = icp._transform(R, t, pts, nrm)
+    want = [c.plain(pts.shape) for c in chains()]
+    _, e = _compare("fma chains, scoring transforms", got, want)
+    a, b, c = (torch.from_numpy(rng.normal(size=(h, pp, 6)).astype(
+        np.float32)).to(cuda) for _ in "abc")
+    n = pts.numel()
+    # read: the points and normals (and R, t per hypothesis); written: the
+    # two transforms. 3 fmas and an add (7 flops) per q entry, 3 fmas (5)
+    # per qn entry
+    return _timed_row(
+        "fma chains, scoring transforms (R p + t, R n of "
+        f"{h} x {pp} points, one launch)",
+        lambda: icp._transform(R, t, pts, nrm),
+        lambda: [ch.plain(pts.shape) for ch in chains()],
+        lambda: torch.addcmul(c, a, b),
+        (2 * n + 2 * n + h * 12) * 4, n * 12, "fma",
+        max_abs_err=e, entries=2 * n)
+
+
+def _score_terms_row(cuda, launch) -> dict:
+    """scoring's per-point terms at the bench scoring launch (K1's
+    4,194,304 queries), held to per_point_ref bit for bit, beside
+    torch.addcmul over the same entries."""
+    from rescan_tpu_torch.ops import lu6, score, search
+    _, slab, bq, bqn, radius, gate, use_abs = launch
+    d2, dot, found = search.gated_min(slab, bq, bqn, radius, gate, use_abs)
+    m = bq.shape[0]
+    mask = torch.ones(m, dtype=torch.bool, device=cuda)
+    mask[m - m // 16:] = False
+    got = score.per_point(d2, dot, found, mask, 0.1)
+    want = score.per_point_ref(d2, dot, found, mask, 0.1)
+    if not lu6.same_bits(got, want):
+        raise SystemExit("[kernels] FAIL score terms: differ from "
+                         "per_point_ref")
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    e = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    a = torch.rand(m, device=cuda)
+    # d2, dot (4 B each), found, mask (1 B each) read, the term written;
+    # per found point the two exps and the arccos (~60 flops)
+    return _timed_row(
+        f"score terms, bench scoring launch ({m} points, "
+        f"{int(found.sum())} found)",
+        lambda: score.per_point(d2, dot, found, mask, 0.1),
+        lambda: score.per_point_ref(d2, dot, found, mask, 0.1),
+        lambda: torch.addcmul(a, d2, dot), m * 14,
+        int(found.sum()) * 60, "score_terms", max_abs_err=e,
+        entries=m)
+
+
+def _xla_math_rows(cuda) -> None:
+    """xla_math_kernel's three operations against the plain versions on
+    1,048,576 arguments over the pipeline's domains and beyond, bit for
+    bit (a NaN equal to any NaN), each beside torch's own function."""
+    from rescan_tpu_torch.ops import lu6, xla_math
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-5, 0, n // 4), rng.uniform(0, 1, n // 4),
+        rng.uniform(-0.3, 0.3, n // 4),
+        rng.uniform(-1, 1, n // 4) * 10.0 ** rng.uniform(-8, 6, n // 4)])
+        .astype(np.float32)).to(cuda)
+    ops = {"exp": (xla_math.exp, xla_math.exp_ref, torch.exp),
+           "arccos": (xla_math.acos, xla_math.acos_ref, torch.acos),
+           "sincos": (xla_math.sincos,
+                      lambda v: torch.stack([xla_math.cos_ref(v),
+                                             xla_math.sin_ref(v)]), None)}
+    for name, (kern, plain, lib) in ops.items():
+        if not lu6.same_bits(kern(x), plain(x)):
+            raise SystemExit(f"[kernels] FAIL xla_math {name}: differs from "
+                             f"the plain version")
+        _timed_row(f"xla_math {name}, {n} arguments (0 mismatches)",
+                   lambda: kern(x), lambda: plain(x),
+                   (lambda: lib(x)) if lib else None,
+                   n * (12 if name == "sincos" else 8), n * 40,
+                   "xla_math")
 
 
 def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
@@ -460,10 +714,10 @@ def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
     _, e = _compare(what, kern(*args), p)
     # kernel, plain, plain, kernel
     reps = 3 if bq.shape[0] > 1_000_000 else 10
-    t_k = [cuda_ms(lambda: kern(*args), reps)]
+    t_k = [kernel_ms(lambda: kern(*args), kind, reps)]
     t_p = [cuda_ms(lambda: plain(*args), 1)]
     t_p.append(cuda_ms(lambda: plain(*args), 1))
-    t_k.append(cuda_ms(lambda: kern(*args), reps))
+    t_k.append(kernel_ms(lambda: kern(*args), kind, reps))
     c = gnn.pair_counts(*args)
     bound, by = _bound(kind, slab, bq, c["in_radius"])
     ms = min(t_k)
@@ -477,6 +731,7 @@ def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
         f"{bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of it")
     row = {"kind": kind, "queries": int(bq.shape[0]),
            "slab_points": slab.n_valid, "ms": ms, "ms_runs": t_k,
+           "timing": TIMING,
            "plain_ms": min(t_p), "plain_ms_runs": t_p, "bound_ms": bound,
            "bound_by": by, "share_of_bound": bound / ms, "max_abs_err": e,
            **c}
@@ -592,13 +847,17 @@ MAX_RECORDED = 64
 
 
 def _record_path_calls():
-    """Wrap pairsum.pairsum, pairsum.fma and lu6.solve so that the first
-    call of every distinct shape on the card keeps a copy of its inputs;
-    every call passes on unchanged. Returns (calls, undo)."""
-    from rescan_tpu_torch.ops import lu6, pairsum
-    calls = {"pairsum": {}, "fma": {}, "lu6": {}}
-    real = {"pairsum": pairsum.pairsum, "fma": pairsum.fma,
-            "lu6": lu6.solve}
+    """Wrap pairsum.pairsum, pairsum.fma_chains, lu6.solve,
+    xla_math.sincos/exp/acos and score.per_point so that the first call
+    of every distinct shape on the card keeps a copy of its inputs (the
+    fma chains, whose operands are strided views, are held to their plain
+    chains right after the call instead, and keep their operands for the
+    timing); every call passes on unchanged. Returns (calls, undo)."""
+    from rescan_tpu_torch.ops import lu6, pairsum, score, xla_math
+    calls = {k: {} for k in PORT_KERNELS}
+    real = {"pairsum": pairsum.pairsum, "fma": pairsum.fma_chains,
+            "lu6": lu6.solve, "sincos": xla_math.sincos, "exp": xla_math.exp,
+            "acos": xla_math.acos, "score_terms": score.per_point}
 
     def keep(name, key, make):
         if key not in calls[name] and len(calls[name]) < MAX_RECORDED:
@@ -612,38 +871,69 @@ def _record_path_calls():
                           None if state is None else state.clone()))
         return real["pairsum"](x, spec, n0, n_total, state)
 
-    def rec_fma(a, b, c):
-        if a.is_cuda or b.is_cuda or c.is_cuda:
-            keep("fma", torch.broadcast_shapes(a.shape, b.shape, c.shape),
-                 lambda: tuple(t.contiguous().clone() for t in
-                               torch.broadcast_tensors(a, b, c)))
-        return real["fma"](a, b, c)
+    def rec_fma(chains, shape, outs=None):
+        got = real["fma"](chains, shape, outs)
+        key = (tuple(shape), len(chains))
+        if got[0].is_cuda and key not in calls["fma"] and \
+                len(calls["fma"]) < MAX_RECORDED:
+            want = [c.plain(torch.Size(shape)) for c in chains]
+            _, e = _compare(f"fma chains path launch {tuple(shape)}", got,
+                            want)
+            calls["fma"][key] = (chains, torch.Size(shape), e)
+        return got
 
     def rec_lu6(c, b):
         if c.is_cuda:
             keep("lu6", tuple(c.shape), lambda: (c.clone(), b.clone()))
         return real["lu6"](c, b)
 
-    pairsum.pairsum, pairsum.fma, lu6.solve = rec_pairsum, rec_fma, rec_lu6
+    def rec_math(op):
+        def call(x):
+            if x.is_cuda:
+                keep("xla_math", (op, tuple(x.shape)), lambda: (op, x.clone()))
+            return real[op](x)
+        return call
+
+    def rec_terms(d2, dot, found, mask, sigma):
+        if d2.is_cuda:
+            keep("score_terms", tuple(d2.shape), lambda: (
+                d2.clone(), dot.clone(), found.clone(), mask.clone(), sigma))
+        return real["score_terms"](d2, dot, found, mask, sigma)
+
+    pairsum.pairsum, pairsum.fma_chains, lu6.solve = (rec_pairsum, rec_fma,
+                                                      rec_lu6)
+    xla_math.sincos, xla_math.exp, xla_math.acos = (
+        rec_math("sincos"), rec_math("exp"), rec_math("acos"))
+    score.per_point = rec_terms
 
     def undo():
-        pairsum.pairsum, pairsum.fma, lu6.solve = (
+        pairsum.pairsum, pairsum.fma_chains, lu6.solve = (
             real["pairsum"], real["fma"], real["lu6"])
+        xla_math.sincos, xla_math.exp, xla_math.acos = (
+            real["sincos"], real["exp"], real["acos"])
+        score.per_point = real["score_terms"]
     return calls, undo
 
 
+def _finite_err(got, want) -> float:
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
 def _path_launches(calls) -> dict:
-    """Phase 5's pairsum, fma and lu6 launches (the first of every
-    shape), each held to its plain version bit for bit after the run;
-    the largest fma and lu6 launches measured against their plain
-    versions, a PyTorch call of the same function and the bound. Returns
-    {name: row} for the kernels line (pairsum: its max_abs_err only)."""
-    from rescan_tpu_torch.ops import gnn, lu6, pairsum
+    """Phase 5's launches of the library's five kernels (the first of
+    every shape), each held to its plain version bit for bit (the fma
+    chains right after their call, the others after the run); the largest
+    launch of each measured against its plain version, a PyTorch call of
+    the same function where there is one and the bound (pairsum: its
+    three largest shapes, the kernel alone). Returns {name: row} for the
+    kernels line (pairsum: its max_abs_err only)."""
+    from rescan_tpu_torch.ops import lu6, pairsum, score, xla_math
     if not all(calls.values()):
         raise SystemExit(f"[slice] FAIL: launches recorded "
                          f"{ {k: len(v) for k, v in calls.items()} }")
     err = 0.0
-    for k, (x, spec, n0, n_total, state) in enumerate(calls["pairsum"].values()):
+    for x, spec, n0, n_total, state in calls["pairsum"].values():
         got = pairsum.pairsum(x, spec, n0, n_total, state)
         want = pairsum.pairsum_ref(x, spec, n0, n_total, state)
         _, e = _compare(f"pairsum path launch {tuple(x.shape)} n0={n0}",
@@ -657,32 +947,38 @@ def _path_launches(calls) -> dict:
         f"axis) from {shapes[0]} to {shapes[-1]}, "
         f"{sum(t[2] >= 16384 for t in shapes)} of them over 16384 points "
         f"or more")
-    rows = {"pairsum": {"max_abs_err": err}}
+    big = sorted(calls["pairsum"].values(),
+                 key=lambda c: c[0].shape[0] * c[0].shape[1])[-3:]
+    timed = []
+    for x, spec, n0, n_total, state in big:
+        call = lambda: pairsum.pairsum(x, spec, n0, n_total, state)  # noqa: E731
+        timed.append({"shape": list(x.shape), "sums": len(spec), "n0": n0,
+                      "ms": kernel_ms(call, "pairsum"),
+                      "wrapper_ms": cuda_ms(call, 5)})
+    say("slice", "pairsum, the largest path launches (pairs, points, "
+        "columns; sums): " + "; ".join(
+            f"{tuple(t['shape'])}, {t['sums']} sums: {t['ms']:.4f} ms"
+            for t in timed))
+    rows = {"pairsum": {"max_abs_err": err, "largest": timed}}
 
-    e_fma = 0.0
-    for a, b, c in calls["fma"].values():
-        _, e = _compare(f"fma path launch {tuple(a.shape)}",
-                        (pairsum.fma(a, b, c),), (gnn._fma32(a, b, c),))
-        e_fma = max(e_fma, e)
-    a, b, c = max(calls["fma"].values(), key=lambda t: t[0].numel())
-    n = a.numel()
-    t_k = [cuda_ms(lambda: pairsum.fma(a, b, c), 10)]
-    t_p = [cuda_ms(lambda: gnn._fma32(a, b, c), 3)]
-    t_p.append(cuda_ms(lambda: gnn._fma32(a, b, c), 3))
-    t_k.append(cuda_ms(lambda: pairsum.fma(a, b, c), 10))
-    t_lib = cuda_ms(lambda: torch.addcmul(c, a, b), 10)
-    # three operands read and one result written, 4 B each; 2 flops each
-    bound, by = max((n * 16 / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (n * 2 / FP32_FLOP_PER_S * 1e3, "operations"))
-    rows["fma"] = {"ms": min(t_k), "ms_runs": t_k, "plain_ms": min(t_p),
-                   "plain_ms_runs": t_p, "library_ms": t_lib,
-                   "bound_ms": bound, "bound_by": by, "max_abs_err": e_fma,
-                   "entries": n}
-    say("slice", f"fma: {len(calls['fma'])} launch shapes held to the plain "
-        f"version (gnn._fma32), 0 mismatches; the largest, {n} entries: "
-        f"kernel {min(t_k):.4f} ms (runs {[round(t, 4) for t in t_k]}), "
-        f"plain {min(t_p):.4f} ms, torch.addcmul {t_lib:.4f} ms; bound "
-        f"{bound:.5f} ms ({by})")
+    e_fma = max(e for _, _, e in calls["fma"].values())
+    chains, shape, _ = max(calls["fma"].values(),
+                           key=lambda c: c[1].numel() * len(c[0]))
+    n = shape.numel() * len(chains)
+    ops = {id(t): t for c in chains for t in c.operands()}
+    a, b, c = (torch.rand(n, device=chains[0].terms[0][0].device)
+               for _ in "abc")
+    flops = sum(2 * len(ch.terms) for ch in chains) * shape.numel()
+    rows["fma"] = _timed_row(
+        f"fma chains, the largest path launch ({len(chains)} chains over "
+        f"{tuple(shape)}; {len(calls['fma'])} launch shapes held to the "
+        f"plain chains, 0 mismatches)",
+        lambda: pairsum.fma_chains(chains, shape),
+        lambda: [ch.plain(shape) for ch in chains],
+        lambda: torch.addcmul(c, a, b),
+        (sum(min(t.numel(), shape.numel()) for t in ops.values()) + n) * 4,
+        flops, "fma", phase="slice", max_abs_err=e_fma,
+        entries=n)
 
     e_lu = 0.0
     for cm, rhs in calls["lu6"].values():
@@ -691,34 +987,102 @@ def _path_launches(calls) -> dict:
             raise SystemExit(f"[slice] FAIL lu6 path launch "
                              f"{tuple(cm.shape)}: differs from the plain "
                              f"version")
-        fin = torch.isfinite(got) & torch.isfinite(want)
-        if fin.any():
-            e_lu = max(e_lu, float((got[fin] - want[fin]).abs().max()))
+        e_lu = max(e_lu, _finite_err(got, want))
     cm, rhs = max(calls["lu6"].values(), key=lambda t: t[0].shape[0])
     m = cm.shape[0]
-    t_k = [cuda_ms(lambda: lu6.solve(cm, rhs), 10)]
-    t_p = [cuda_ms(lambda: lu6.solve_ref(cm, rhs), 3)]
-    t_p.append(cuda_ms(lambda: lu6.solve_ref(cm, rhs), 3))
-    t_k.append(cuda_ms(lambda: lu6.solve(cm, rhs), 10))
-    t_lib = cuda_ms(lambda: torch.linalg.solve(cm, rhs), 10)
     # each system's 36 + 6 entries read and 6 written; its flops: the
     # factorisation's dots and scalings, then the two triangular solves
     flops = sum(2 * i for j in range(6) for i in range(1, j)) + sum(
         2 * j * (6 - j) + (6 - j) for j in range(6)) + 2 * 36
-    bound, by = max((m * 48 * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (m * flops / FP32_FLOP_PER_S * 1e3, "operations"))
-    rows["lu6"] = {"ms": min(t_k), "ms_runs": t_k, "plain_ms": min(t_p),
-                   "plain_ms_runs": t_p, "library_ms": t_lib,
-                   "bound_ms": bound, "bound_by": by, "max_abs_err": e_lu,
-                   "systems": m}
-    say("slice", f"lu6: {len(calls['lu6'])} launch shapes held to the plain "
-        f"version (ops/lu6.py solve_ref), 0 mismatches; the largest, {m} "
-        f"systems: kernel {min(t_k):.4f} ms (runs "
-        f"{[round(t, 4) for t in t_k]}), plain {min(t_p):.4f} ms, "
-        f"torch.linalg.solve {t_lib:.4f} ms; bound {bound:.6f} ms ({by})")
-    print(json.dumps({"path_launch": {k: v for k, v in rows.items()}}),
-          flush=True)
+    rows["lu6"] = _timed_row(
+        f"lu6, the largest path launch ({m} systems; "
+        f"{len(calls['lu6'])} launch shapes held to ops/lu6.py solve_ref, "
+        f"0 mismatches)", lambda: lu6.solve(cm, rhs),
+        lambda: lu6.solve_ref(cm, rhs),
+        lambda: torch.linalg.solve_ex(cm, rhs)[0],
+        m * 48 * 4, m * flops, "lu6", phase="slice",
+        max_abs_err=e_lu, systems=m)
+
+    plain = {"sincos": lambda v: torch.stack([xla_math.cos_ref(v),
+                                              xla_math.sin_ref(v)]),
+             "exp": xla_math.exp_ref, "acos": xla_math.acos_ref}
+    kern = {"sincos": xla_math.sincos, "exp": xla_math.exp,
+            "acos": xla_math.acos}
+    e_m = 0.0
+    for op, x in calls["xla_math"].values():
+        got, want = kern[op](x), plain[op](x)
+        if not lu6.same_bits(got, want):
+            raise SystemExit(f"[slice] FAIL xla_math {op} path launch "
+                             f"{tuple(x.shape)}: differs from the plain "
+                             f"version")
+        e_m = max(e_m, _finite_err(got, want))
+    op, x = max(calls["xla_math"].values(), key=lambda t: t[1].numel())
+    rows["xla_math"] = _timed_row(
+        f"xla_math {op}, the largest path launch ({tuple(x.shape)}; "
+        f"{len(calls['xla_math'])} launch shapes held to the plain "
+        f"versions, 0 mismatches)", lambda: kern[op](x),
+        lambda: plain[op](x), None, x.numel() * (12 if op == "sincos" else 8),
+        x.numel() * 40, "xla_math", phase="slice", max_abs_err=e_m,
+        entries=x.numel())
+
+    e_s = 0.0
+    for args in calls["score_terms"].values():
+        got, want = score.per_point(*args), score.per_point_ref(*args)
+        if not lu6.same_bits(got, want):
+            raise SystemExit(f"[slice] FAIL score terms path launch "
+                             f"{tuple(args[0].shape)}: differs from "
+                             f"per_point_ref")
+        e_s = max(e_s, _finite_err(got, want))
+    args = max(calls["score_terms"].values(), key=lambda t: t[0].numel())
+    m = args[0].numel()
+    n_found = int((args[2] & args[3]).sum())
+    a = torch.rand(args[0].shape, device=args[0].device)
+    rows["score_terms"] = _timed_row(
+        f"score terms, the largest path launch ({tuple(args[0].shape)}, "
+        f"{n_found} found; {len(calls['score_terms'])} launch shapes held "
+        f"to per_point_ref, 0 mismatches)", lambda: score.per_point(*args),
+        lambda: score.per_point_ref(*args),
+        lambda: torch.addcmul(a, args[0], args[1]), m * 14, n_found * 60,
+        "score_terms", phase="slice", max_abs_err=e_s, entries=m)
+    print(json.dumps({"path_launch": rows}), flush=True)
     return rows
+
+
+@contextlib.contextmanager
+def _aug_icp_sizes():
+    """Record every one-pair ICP of the database augmentation
+    (segment_transfer's icp_align_batched): its level-0 point count (a
+    device tensor, read afterwards) and its padded length. Yields a
+    function that returns [(points, padded)]."""
+    from rescan_tpu_torch.ops import icp
+    got = []
+    real = icp.icp_align_batched
+
+    def spy(obj_pts, obj_nrm, obj_mask, *a, **k):
+        got.append((obj_mask.sum(), obj_pts.shape[1]))
+        return real(obj_pts, obj_nrm, obj_mask, *a, **k)
+
+    icp.icp_align_batched = spy
+    try:
+        yield lambda: [(int(n), p) for n, p in got]
+    finally:
+        icp.icp_align_batched = real
+
+
+def _say_aug(phase: str, what: str, sizes) -> dict:
+    small = sum(p <= 256 for _, p in sizes)
+    say(phase, f"{what}: {len(sizes)} augmentation ICP placements, {small} "
+        f"of them padded to 256 points or fewer (the one-pair FOLDED sums); "
+        f"(level-0 points, padded): {sizes}")
+    return {"placements": len(sizes), "at_most_256": small}
+
+
+def _exact(ref, got) -> list:
+    """The outputs of one rescan that differ from a reference's at all."""
+    return [k for k in ("prop_counts", "prop_poses", "prop_scores",
+                        "arr_poses", "class_ids", "instance_ids")
+            if ref[k].shape != got[k].shape
+            or not np.array_equal(ref[k], got[k])]
 
 
 def phase_slice(cuda, root: str, class_file: str):
@@ -741,9 +1105,11 @@ def phase_slice(cuda, root: str, class_file: str):
     path_calls, undo = _record_path_calls()
     t0 = time.perf_counter()
     try:
-        _, launches, plain = _counted(
-            "slice", "bench sequence",
-            lambda: _run_driver(root, class_file, [cuda], profiles=profiles))
+        with _aug_icp_sizes() as aug:
+            _, launches, plain = _counted(
+                "slice", "bench sequence",
+                lambda: _run_driver(root, class_file, [cuda],
+                                    profiles=profiles))
     finally:
         search.nearest_gated = real
         undo()
@@ -765,7 +1131,10 @@ def phase_slice(cuda, root: str, class_file: str):
     say("slice", f"bench sequence in {wall:.1f}s: kernel launches "
         f"{launches}, plain calls {plain}; proposals per object "
         f"{counts.tolist()}; {len(out['class_ids'])} level-1 points "
-        f"labelled")
+        f"labelled; the fma family (fma chains, XLA math, score terms) "
+        f"{launches['fma'] + launches['xla_math'] + launches['score_terms']}"
+        f" launches")
+    _say_aug("slice", "bench rescan", aug())
     # held to the JAX package's run on the slab at every limit, and to its
     # run on the CPU's HashGrid with the lower-ranked proposals at the
     # other-engine limits (rescan_tpu_torch/sequences.py)
@@ -780,7 +1149,9 @@ def phase_slice(cuda, root: str, class_file: str):
             f"({os.path.relpath(path, HERE)}): proposal counts "
             f"{ref['prop_counts'].tolist()} identical, within the "
             + ("other-engine limits" if other else "limits")
-            + f"; {diffs}")
+            + f"; {diffs}" + ("" if other else
+                              f"; outputs not bit-identical: "
+                              f"{_exact(ref, out) or 'none'}"))
     p = profiles[0]
     stages = dict(p["pose_proposal"], **p["segment_transfer"])
     say("slice", "ICP substages, seconds (this run | with tree-ordered "
@@ -1064,9 +1435,10 @@ def _eval_small(cuda, work: str) -> None:
     from rescan_tpu_torch import sequences
     root = os.path.join(work, "small3")
     class_file = sequences.write_eval_sequence(root, small=True)
-    _, launches, plain = _counted(
-        "eval", "(a) small 3-scan sequence",
-        lambda: _run_eval_driver(root, class_file, [cuda]))
+    with _aug_icp_sizes() as aug:
+        _, launches, plain = _counted(
+            "eval", "(a) small 3-scan sequence",
+            lambda: _run_eval_driver(root, class_file, [cuda]))
     ref = dict(np.load(REF3_NPZ))
     slab = dict(np.load(REF3_SLAB_NPZ))
     got = sequences.sequence_outputs(root)
@@ -1080,6 +1452,9 @@ def _eval_small(cuda, work: str) -> None:
             # the JAX package's engines part on rescan 2 (sequences.py)
             bad = sequences.compare_outputs(
                 r, g, other_engine=name == "HashGrid" and k > 0)
+            # the card computes the JAX package's slab run bit for bit
+            if name == "slab":
+                bad = bad + [f"not bit-identical: {k}" for k in _exact(r, g)]
             if bad:
                 raise SystemExit(f"[eval] FAIL (a) {sub} vs the JAX "
                                  f"package's {name} run: {bad}; {diffs}")
@@ -1089,8 +1464,10 @@ def _eval_small(cuda, work: str) -> None:
     if bad:
         raise SystemExit(f"[eval] FAIL (a) metrics: {bad}")
     say("eval", "(a) small 3-scan sequence vs the JAX package's committed "
-        "outputs: " + "; ".join(msgs) + f"; kernel launches {launches}, "
-        f"plain calls {plain}")
+        "outputs (both rescans bit-identical to the slab run): "
+        + "; ".join(msgs) + f"; kernel launches {launches}, plain calls "
+        f"{plain}")
+    _say_aug("eval", "(a) small 3-scan sequence", aug())
     say("eval", "(a) metrics (card | JAX, CPU): " + ", ".join(
         f"{k} {metrics[k]!r} | {want[k]!r}" for k in sequences.METRICS))
 
@@ -1107,10 +1484,12 @@ def _eval_bench(cuda, work: str):
         f"{time.perf_counter() - t0:.1f}s")
     profiles = []
     rescan_tpu_torch.CPU_CALLS.clear()
-    (_, launches, plain), wall = _synced(lambda: _counted(
-        "eval", "(b) bench 3-scan sequence",
-        lambda: _run_eval_driver(root, class_file, [cuda],
-                                 profiles=profiles)))
+    with _aug_icp_sizes() as aug:
+        (_, launches, plain), wall = _synced(lambda: _counted(
+            "eval", "(b) bench 3-scan sequence",
+            lambda: _run_eval_driver(root, class_file, [cuda],
+                                     profiles=profiles)))
+    _say_aug("eval", "(b) bench 3-scan sequence", aug())
     per = []
     for p in profiles:
         secs = p["pose_proposal"]["total"] + p["segment_transfer"]["total"]
@@ -1283,22 +1662,28 @@ def main() -> int:
         phase_eval(cuda, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    rows = dict(kern["rows"], fma=path_rows["fma"], lu6=path_rows["lu6"])
-    err = dict(kern["err"], fma=path_rows["fma"]["max_abs_err"],
-               lu6=path_rows["lu6"]["max_abs_err"])
+    # the main path's own launches where phase 5 measured them; pairsum's
+    # heavy round at the bench ICP launch's shape from phase 3
+    rows = dict(kern["rows"], **{k: path_rows[k] for k in PORT_KERNELS
+                                 if k != "pairsum"})
+    err = dict(kern["err"], **{k: path_rows[k]["max_abs_err"]
+                               for k in PORT_KERNELS if k != "pairsum"})
+    for k in ("fma", "score_terms"):
+        err[k] = max(err[k], kern["rows"][k]["max_abs_err"])
     err["pairsum"] = max(err["pairsum"], path_rows["pairsum"]["max_abs_err"])
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCES.get(name, KERNEL_SOURCE),
                 "replaces": REPLACES_OF.get(name, REPLACES),
                 "launches": launches[name], "max_abs_err": err[name],
-                "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+                "ms": rows[name]["ms"], "timing": rows[name]["timing"],
+                "plain_ms": rows[name]["plain_ms"],
                 "bound_ms": rows[name]["bound_ms"],
                 "bound_by": rows[name]["bound_by"],
-                # no PyTorch call gates a nearest neighbour by normal; the
-                # sums' is the Gram product of their columns
+                # no PyTorch call gates a nearest neighbour by normal, nor
+                # computes a sine and cosine at once; the sums' is the Gram
+                # product of their columns
                 "library_ms": rows[name].get("library_ms")}
-               for name in ("gated_min", "nearest_gated", "pairsum", "fma",
-                            "lu6")]
+               for name in ("gated_min", "nearest_gated") + PORT_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,34 @@
 // Per-pair sums over points in the JAX package's order (ops/pairsum.py),
-// and the rest of the ICP step's arithmetic in that order: an elementwise
-// correctly rounded fused multiply-add (ops/pairsum.py ``fma``) and the
-// batched 6x6 solve (ops/lu6.py).
+// and the rest of the ICP step's and scoring's arithmetic in that order:
+// chains of correctly rounded fused multiply-adds over strided operands
+// (ops/pairsum.py ``fma_chains``), the batched 6x6 solve (ops/lu6.py),
+// XLA's f32 exp/arccos/cos/sin (ops/xla_math.py, csrc/xla_math.cuh) and
+// scoring's per-point terms (ops/score.py ``per_point``). No Pallas kernel
+// stands behind these: they replace what XLA:CPU compiled for the JAX
+// package (rescan_tpu/ops/icp.py:43-45, 101-177; score.py:149-168).
 //
-// One thread per (pair, quantity): it walks the pair's points in index
-// order, ``acc0 = fma(a[n], b[n], acc0)``, and where the shared
-// push-depth table says a segment ends (a 32-entry window of a jnp.sum, a
-// k-block of Eigen's product), adds the finished level into the next one
-// and restarts it from 0; a LANES sum keeps 32 interleaved chains instead.
-// A sum is sequential, so it is never cut into a tree; the pairs and
-// quantities are the parallel axes. The accumulators come in from and go
-// back to ``state``, so a point axis split over shards continues one sum.
+// pairsum_kernel: one CTA per pair. A sum in XLA's
+// order is a sequence of chains: every level-0 segment (a 32-point window
+// of a jnp.sum, a k-block of Eigen's product, a lane of a vectorized loop)
+// is an FMA chain from 0, and the segment sums are added into the levels
+// above in a fixed order (the push-depth table). So the CTA reads the
+// pair's rows once, in tiles of points staged column by column in
+// shared memory; in a tile every piece of every sum (the part of a
+// segment inside the tile; the host lists them per tile) is one thread's
+// chain, all at once, reading 4 points a load; then one thread per sum
+// adds the finished pieces into its levels in order. The carried levels
+// are the (B, Q, STATE) state, so a point axis split over shards continues
+// one sum. Bound: a CHAIN sum (one segment over the whole axis) is n
+// dependent FMAs, which the order forbids to split; the bytes (each row
+// read once) are far below that.
 //
 // Built with -fmad=false: the only fused operations are the explicit
-// __fmaf_rn, and every other add is __fadd_rn.
+// __fmaf_rn/__fma_rn, and every other add is __fadd_rn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "xla_math.cuh"
 
 namespace {
 
@@ -24,120 +36,429 @@ namespace {
 // lanes and a total
 constexpr int STATE = 36;
 constexpr int THREADS = 128;
-constexpr int LANES = 4, LANES_TAIL = 5;   // ops/pairsum.py kinds
-constexpr int LANE_COUNT = 32, LANE_TAIL = 32, LANE_TOTAL = 32;
-constexpr float F32_TINY = 1.17549435e-38f;   // FLT_MIN
+// ops/pairsum.py kinds
+constexpr int N_CHAINED = 4;  // WINDOW, CHAIN, BLOCKED, BLOCKED_TAIL
+constexpr int LANES = 4, LANES_TAIL = 5, FOLDED = 6, FOLDED_TAIL = 7;
+constexpr int LANE_COUNT = 32, LANE_TAIL = 32, LANE_TOTAL = 32, FOLD_WIDTH = 8;
+constexpr float F32_TINY = 1.17549435e-38f;  // FLT_MIN
 
-// one launch of THREADS-thread blocks (a host build of this file may
-// define its own)
+// pairsum_kernel's two shapes (ops/pairsum.py picks one and checks a
+// launch against it): threads, points staged at once, columns of a point,
+// sums of a launch, pieces of one chained sum in a tile. Big for the ICP's
+// rounds of many sums; Small, a fifth of the shared memory, for launches
+// of a few sums over many pairs (scoring's means), so that many CTAs
+// share an SM.
+template <int THREADS_, int TILE_, int MAX_K_, int MAX_Q_, int PIECES_>
+struct SumShape {
+  static constexpr int THREADS = THREADS_, TILE = TILE_, MAX_K = MAX_K_, MAX_Q = MAX_Q_;
+  static constexpr int PIECES = PIECES_;
+  static constexpr int TS = TILE_ + 4;       // a staged column's stride (float4-aligned)
+  static constexpr int TROW = 1 + PIECES_;   // a kind's row of the tile table
+  // a thread's share of the next tile's rows, loaded ahead into registers
+  static constexpr int PREFETCH = TILE_ * MAX_K_ / THREADS_;
+};
+using BigSum = SumShape<256, 512, 16, 48, 18>;
+using SmallSum = SumShape<64, 256, 4, 4, 10>;
+
+// one launch of ``blocks`` blocks of ``threads`` threads (a host build of
+// this file may define its own)
 #ifndef PAIRSUM_LAUNCH
-#define PAIRSUM_LAUNCH(kernel, blocks, stream, ...) \
-  kernel<<<(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
+#define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...)                  \
+  kernel<<<(blocks), (threads), 0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
 #endif
 
-// Points n0 .. n0 + n of a LANES sum (n0, n and n_total multiples of 32):
-// point i of the first n_total - tail goes to lane i % 32 in index order;
-// after the last of them the four 8-lane vectors are added
-// ((v1 + v0) + v2) + v3 and the 8 lanes halved three times; the last
-// ``tail`` points are then chained on one by one (LLVM's vectorized
-// reduction, as XLA runs a one-pair dot). The lanes and then the total
-// live in the state, so a run of points continues the one before it.
-__device__ void lanes_sum(const float* row, int n, int k, int ia, int ib,
-                          int n0, int n_total, int tail, float* st) {
-  const int v = n_total - tail;
-  const int hi = min(n0 + n, v);
-  if (hi > n0) {
-    float acc[LANE_COUNT];
-#pragma unroll
-    for (int l = 0; l < LANE_COUNT; ++l) acc[l] = st[l];
-    for (int i = 0; i < hi - n0; i += LANE_COUNT) {
-#pragma unroll
-      for (int l = 0; l < LANE_COUNT; ++l) {
-        const float* p = row + static_cast<size_t>(i + l) * k;
-        acc[l] = __fmaf_rn(p[ia], ib >= 0 ? p[ib] : 1.0f, acc[l]);
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < LANE_COUNT; ++l) st[l] = acc[l];
-  }
-  if (n0 + n < v || n == 0) return;
-  float s = st[LANE_TOTAL];
-  if (n0 < v) {
-    float r[8];
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      r[l] = __fadd_rn(__fadd_rn(__fadd_rn(st[8 + l], st[l]), st[16 + l]),
-                       st[24 + l]);
-    }
-#pragma unroll
-    for (int h = 4; h > 0; h >>= 1) {
-#pragma unroll
-      for (int l = 0; l < h; ++l) r[l] = __fadd_rn(r[l], r[l + h]);
-    }
-    s = r[0];
-  }
-  for (int i = max(v, n0) - n0; i < n; ++i) {
-    const float* p = row + static_cast<size_t>(i) * k;
-    s = __fmaf_rn(p[ia], ib >= 0 ? p[ib] : 1.0f, s);
-  }
-  st[LANE_TOTAL] = s;
+template <bool ADD>
+__device__ __forceinline__ float step(float a, float b, float acc) {
+  return ADD ? __fadd_rn(acc, a) : __fmaf_rn(a, b, acc);
 }
 
-__global__ void __launch_bounds__(THREADS)
-pairsum_kernel(const float* __restrict__ x, int n_pairs, int n, int k,
-               const int* __restrict__ spec, int n_q,
-               const int8_t* __restrict__ depth, int n0, int n_total,
-               float* __restrict__ state) {
-  const int t = blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n_pairs * n_q) return;
-  const int pair = t / n_q;
-  const int q = t - pair * n_q;
-  const int kind = spec[3 * q];
-  const int ia = spec[3 * q + 1];
-  const int ib = spec[3 * q + 2];
-  float* st = state + static_cast<size_t>(t) * STATE;
-  const float* row = x + static_cast<size_t>(pair) * n * k;
-  if (kind == LANES || kind == LANES_TAIL) {
-    lanes_sum(row, n, k, ia, ib, n0, n_total,
-              kind == LANES_TAIL ? LANE_TAIL : 0, st);
-    return;
+// acc chained over entries i0 .. i1 - 1 of two staged columns, in order:
+// fma(a[i], b[i], acc), or acc + a[i] (ADD). The body reads 4 entries of
+// each column a load (float4), 16 a trip in two sets of registers: one
+// set's loads are in flight while the other's FMAs run, so the chain waits
+// on its FMAs rather than on shared memory.
+template <bool ADD>
+__device__ __forceinline__ void load8(const float* ca, const float* cb, int i, float4& a0,
+                                      float4& a1, float4& b0, float4& b1) {
+  a0 = *reinterpret_cast<const float4*>(ca + i);
+  a1 = *reinterpret_cast<const float4*>(ca + i + 4);
+  if (!ADD) {
+    b0 = *reinterpret_cast<const float4*>(cb + i);
+    b1 = *reinterpret_cast<const float4*>(cb + i + 4);
   }
-  float a0 = st[0], a1 = st[1], a2 = st[2], a3 = st[3], a4 = st[4];
-  const int8_t* dp = depth + static_cast<size_t>(kind) * n_total + n0;
-#pragma unroll 8
-  for (int i = 0; i < n; ++i) {
-    const float* p = row + static_cast<size_t>(i) * k;
-    a0 = ib >= 0 ? __fmaf_rn(p[ia], p[ib], a0) : __fadd_rn(a0, p[ia]);
-    const int d = dp[i];
-    if (d > 0) {
-      a1 = __fadd_rn(a1, a0);
-      a0 = 0.0f;
-      if (d > 1) {
-        a2 = __fadd_rn(a2, a1);
-        a1 = 0.0f;
-        if (d > 2) {
-          a3 = __fadd_rn(a3, a2);
-          a2 = 0.0f;
-          if (d > 3) {
-            a4 = __fadd_rn(a4, a3);
-            a3 = 0.0f;
-          }
+}
+
+template <bool ADD>
+__device__ __forceinline__ float step8(const float4& a0, const float4& a1, const float4& b0,
+                                       const float4& b1, float acc) {
+  acc = step<ADD>(a0.x, b0.x, acc);
+  acc = step<ADD>(a0.y, b0.y, acc);
+  acc = step<ADD>(a0.z, b0.z, acc);
+  acc = step<ADD>(a0.w, b0.w, acc);
+  acc = step<ADD>(a1.x, b1.x, acc);
+  acc = step<ADD>(a1.y, b1.y, acc);
+  acc = step<ADD>(a1.z, b1.z, acc);
+  return step<ADD>(a1.w, b1.w, acc);
+}
+
+template <bool ADD>
+__device__ __forceinline__ float chain_t(const float* ca, const float* cb, int i0, int i1,
+                                         float acc) {
+  int i = i0;
+  for (; i < i1 && (i & 3); ++i) acc = step<ADD>(ca[i], ADD ? 0.0f : cb[i], acc);
+  float4 xa0, xa1, xb0, xb1, ya0, ya1, yb0, yb1;
+  if (i + 8 <= i1) load8<ADD>(ca, cb, i, xa0, xa1, xb0, xb1);
+  for (; i + 16 <= i1; i += 16) {
+    load8<ADD>(ca, cb, i + 8, ya0, ya1, yb0, yb1);
+    acc = step8<ADD>(xa0, xa1, xb0, xb1, acc);
+    if (i + 24 <= i1) load8<ADD>(ca, cb, i + 16, xa0, xa1, xb0, xb1);
+    acc = step8<ADD>(ya0, ya1, yb0, yb1, acc);
+  }
+  if (i + 8 <= i1) {
+    acc = step8<ADD>(xa0, xa1, xb0, xb1, acc);
+    i += 8;
+  }
+  for (; i < i1; ++i) acc = step<ADD>(ca[i], ADD ? 0.0f : cb[i], acc);
+  return acc;
+}
+
+// the staged columns of a sum (b unused where ib < 0): entries i0 .. i1 - 1
+// in order, or i0, i0 + stride, ... (a lane of a LANES sum)
+__device__ __forceinline__ float chain(const float* s_x, int ts, int ia, int ib, int i0,
+                                       int i1, float acc) {
+  return ib >= 0 ? chain_t<false>(s_x + ia * ts, s_x + ib * ts, i0, i1, acc)
+                 : chain_t<true>(s_x + ia * ts, s_x, i0, i1, acc);
+}
+
+__device__ __forceinline__ float chain_strided(const float* s_x, int ts, int ia, int ib,
+                                               int i0, int i1, int stride, float acc) {
+  const float* ca = s_x + ia * ts;
+  const float* cb = s_x + (ib >= 0 ? ib : ia) * ts;
+  for (int i = i0; i < i1; i += stride)
+    acc = ib >= 0 ? __fmaf_rn(ca[i], cb[i], acc) : __fadd_rn(acc, ca[i]);
+  return acc;
+}
+
+// x: (n_pairs, n, k) rows, points n0 .. n0 + n of n_total; spec: (n_q, 3)
+// (kind, a column, b column or -1); tiles: ops/pairsum.py ``_tiles`` (per
+// tile of the run and chained kind: its piece count, then each piece's
+// end, packed end << 3 | push depth, -1 for an open last piece); folds:
+// ops/pairsum.py ``_folds`` (the FOLDED kinds' chunk orders); state:
+// (n_pairs, n_q, STATE), read and written.
+template <class S>
+__global__ void __launch_bounds__(S::THREADS)
+pairsum_kernel(const float* __restrict__ x, int n, int k,
+               const int* __restrict__ spec, int n_q, const int* __restrict__ tiles,
+               const int* __restrict__ folds, int n0, int n_total,
+               float* __restrict__ state) {
+  __shared__ __align__(16) float s_x[S::MAX_K * S::TS];  // the tile, column by column
+  __shared__ float s_st[S::MAX_Q * STATE];
+  __shared__ float s_piece[S::MAX_Q * S::PIECES];
+  __shared__ int s_spec[S::MAX_Q * 3];
+  __shared__ int s_tab[N_CHAINED * S::TROW];
+  const int tid = threadIdx.x;
+  const size_t pair = blockIdx.x;
+  const float* row = x + pair * n * k;
+  float* st_g = state + pair * n_q * STATE;
+  int used = 0;  // a bit per kind of the spec
+  for (int q = 0; q < n_q; ++q) used |= 1 << spec[3 * q];
+  for (int i = tid; i < n_q * 3; i += S::THREADS) s_spec[i] = spec[i];
+  for (int i = tid; i < n_q * STATE; i += S::THREADS) s_st[i] = st_g[i];
+  // a thread's entries of the rows step by (point, column) += (dp, dc)
+  const int dp = S::THREADS / k, dc = S::THREADS % k;
+  const int n_tab = N_CHAINED * S::TROW;
+  // the first tile's rows and table entry, in registers
+  float pre[S::PREFETCH];
+  int pre_tab = tid < n_tab ? tiles[tid] : 0;
+#pragma unroll
+  for (int j = 0; j < S::PREFETCH; ++j) {
+    const int i = tid + j * S::THREADS;
+    if (i < min(S::TILE, n) * k) pre[j] = row[i];
+  }
+  for (int t0 = 0; t0 < n; t0 += S::TILE) {
+    const int len = min(S::TILE, n - t0);
+    const int g0 = n0 + t0, g1 = g0 + len;
+    __syncthreads();  // the last tile is summed: its rows may go
+    {
+      int pt = tid / k, c = tid % k;
+#pragma unroll
+      for (int j = 0; j < S::PREFETCH; ++j) {
+        if (tid + j * S::THREADS < len * k) s_x[c * S::TS + pt] = pre[j];
+        pt += dp;
+        c += dc;
+        if (c >= k) {
+          c -= k;
+          ++pt;
         }
       }
+      if (tid < n_tab) s_tab[tid] = pre_tab;
+    }
+    __syncthreads();
+    // the next tile's rows and table entry, in flight while this one is
+    // summed
+    if (t0 + S::TILE < n) {
+      const float* src = row + static_cast<size_t>(t0 + S::TILE) * k;
+      const int next = min(S::TILE, n - t0 - S::TILE) * k;
+#pragma unroll
+      for (int j = 0; j < S::PREFETCH; ++j) {
+        const int i = tid + j * S::THREADS;
+        if (i < next) pre[j] = src[i];
+      }
+      if (tid < n_tab) pre_tab = tiles[static_cast<size_t>(t0 / S::TILE + 1) * n_tab + tid];
+    }
+    int slots = 0;
+    for (int kind = 0; kind < N_CHAINED; ++kind)
+      if (used & (1 << kind)) slots = max(slots, s_tab[kind * S::TROW]);
+    if (used & ((1 << LANES) | (1 << LANES_TAIL))) slots = max(slots, LANE_COUNT);
+    if (used & ((1 << FOLDED) | (1 << FOLDED_TAIL))) slots = max(slots, FOLD_WIDTH);
+    // every piece and lane of every sum, one chain each (slot-major, so
+    // the long first pieces of all sums go to different threads)
+    for (int w = tid; w < slots * n_q; w += S::THREADS) {
+      const int p = w / n_q, q = w - p * n_q;
+      const int kind = s_spec[3 * q], ia = s_spec[3 * q + 1], ib = s_spec[3 * q + 2];
+      if (kind < N_CHAINED) {
+        const int* tk = s_tab + kind * S::TROW;
+        if (p >= tk[0]) continue;
+        const int s = p ? (tk[p] >> 3) + 1 : g0;
+        const int pe = tk[1 + p];
+        const int e = pe >= 0 ? (pe >> 3) + 1 : g1;
+        s_piece[q * S::PIECES + p] = chain(s_x, S::TS, ia, ib, s - g0, e - g0, p ? 0.0f : s_st[q * STATE]);
+      } else if (kind == LANES || kind == LANES_TAIL) {
+        // lane p takes the points i % 32 == p of the vector part
+        const int v = n_total - (kind == LANES_TAIL ? LANE_TAIL : 0);
+        s_st[q * STATE + p] =
+            chain_strided(s_x, S::TS, ia, ib, p, min(g1, v) - g0, LANE_COUNT, s_st[q * STATE + p]);
+      } else if (p < FOLD_WIDTH) {
+        // FOLDED: the whole axis is this one tile; lane p takes chunk c's
+        // point 8c + p in XLA's fold order
+        const int v = n_total - (kind == FOLDED_TAIL ? LANE_TAIL : 0);
+        const int* order = folds + folds[kind - FOLDED];
+        const float* ca = s_x + ia * S::TS;
+        const float* cb = s_x + (ib >= 0 ? ib : ia) * S::TS;
+        float acc = s_st[q * STATE + p];
+        for (int c = 0; c < v / FOLD_WIDTH; ++c) {
+          const int i = order[c] * FOLD_WIDTH + p;
+          acc = ib >= 0 ? __fmaf_rn(ca[i], cb[i], acc) : __fadd_rn(acc, ca[i]);
+        }
+        s_st[q * STATE + p] = acc;
+      }
+    }
+    __syncthreads();
+    // one thread per sum: the pieces into the levels, in order; the lanes'
+    // reduction and tail
+    for (int q = tid; q < n_q; q += S::THREADS) {
+      const int kind = s_spec[3 * q], ia = s_spec[3 * q + 1], ib = s_spec[3 * q + 2];
+      float* st = s_st + q * STATE;
+      if (kind < N_CHAINED) {
+        const int* tk = s_tab + kind * S::TROW;
+        float a0 = st[0], a1 = st[1], a2 = st[2], a3 = st[3], a4 = st[4];
+        for (int p = 0; p < tk[0]; ++p) {
+          a0 = s_piece[q * S::PIECES + p];
+          const int pe = tk[1 + p];
+          const int d = pe >= 0 ? pe & 7 : 0;
+          if (d > 0) {
+            a1 = __fadd_rn(a1, a0);
+            a0 = 0.0f;
+            if (d > 1) {
+              a2 = __fadd_rn(a2, a1);
+              a1 = 0.0f;
+              if (d > 2) {
+                a3 = __fadd_rn(a3, a2);
+                a2 = 0.0f;
+                if (d > 3) {
+                  a4 = __fadd_rn(a4, a3);
+                  a3 = 0.0f;
+                }
+              }
+            }
+          }
+        }
+        st[0] = a0;
+        st[1] = a1;
+        st[2] = a2;
+        st[3] = a3;
+        st[4] = a4;
+        continue;
+      }
+      const bool lanes = kind == LANES || kind == LANES_TAIL;
+      const int tail = (kind == LANES_TAIL || kind == FOLDED_TAIL) ? LANE_TAIL : 0;
+      const int v = n_total - tail;
+      if (g1 < v) continue;
+      float s = st[LANE_TOTAL];
+      if (g0 < v) {
+        float r[8];
+        if (lanes) {
+          // ((v1 + v0) + v2) + v3 over the four 8-lane vectors
+#pragma unroll
+          for (int l = 0; l < 8; ++l)
+            r[l] = __fadd_rn(__fadd_rn(__fadd_rn(st[8 + l], st[l]), st[16 + l]), st[24 + l]);
+        } else {
+#pragma unroll
+          for (int l = 0; l < 8; ++l) r[l] = st[l];
+        }
+#pragma unroll
+        for (int h = 4; h > 0; h >>= 1) {
+#pragma unroll
+          for (int l = 0; l < h; ++l) r[l] = __fadd_rn(r[l], r[l + h]);
+        }
+        s = r[0];
+      }
+      st[LANE_TOTAL] = chain(s_x, S::TS, ia, ib, max(v, g0) - g0, len, s);
     }
   }
-  st[0] = a0;
-  st[1] = a1;
-  st[2] = a2;
-  st[3] = a3;
-  st[4] = a4;
+  __syncthreads();
+  for (int i = tid; i < n_q * STATE; i += S::THREADS) st_g[i] = s_st[i];
 }
 
+// ---------------------------------------------------------------------------
+// fma_chain_kernel: whole chains of fused multiply-adds over strided
+// operands (ops/pairsum.py ``fma_chains``)
+// ---------------------------------------------------------------------------
+
+constexpr int DIMS = 4, MAX_TERMS = 4, MAX_COLS = 4;
+
+// a float tensor as a base address and strides (in floats) over the
+// launch's index; a broadcast dimension has stride 0
+struct Operand {
+  long long ptr;
+  long long stride[DIMS];
+};
+
+// out = ((acc chain) [+ add]); the chain is fma(a[t], b[t], acc) over the
+// terms after the first, from a[0] * b[0] (negated where neg_first)
+struct Column {
+  long long n_terms, neg_first, has_add;
+  Operand out, add;
+  Operand a[MAX_TERMS], b[MAX_TERMS];
+};
+
+struct FmaDesc {
+  long long shape[DIMS];  // the index, outermost first
+  long long total;
+  long long n_cols;
+  Column col[MAX_COLS];
+};
+
+// in 32 bits: ops/pairsum.py keeps every operand's reach below 2^32
+__device__ __forceinline__ unsigned offset(const Operand& o, const unsigned* idx) {
+  return idx[0] * static_cast<unsigned>(o.stride[0]) +
+         idx[1] * static_cast<unsigned>(o.stride[1]) +
+         idx[2] * static_cast<unsigned>(o.stride[2]) +
+         idx[3] * static_cast<unsigned>(o.stride[3]);
+}
+
+__device__ __forceinline__ float load(const Operand& o, const unsigned* idx) {
+  return reinterpret_cast<const float*>(o.ptr)[offset(o, idx)];
+}
+
+// FMA_ELEMS consecutive entries of the index a thread: the index is split
+// once and stepped after; every term's operands are loaded before the
+// chain runs. 3 is the innermost extent of the transforms' (B, N, 3)
+// index: a thread takes one point's three coordinates.
+constexpr int FMA_ELEMS = 3;
+
+__global__ void __launch_bounds__(THREADS) fma_chain_kernel(const FmaDesc d) {
+  const unsigned total = static_cast<unsigned>(d.total);
+  const unsigned i0 = (blockIdx.x * THREADS + threadIdx.x) * FMA_ELEMS;
+  if (i0 >= total) return;
+  unsigned sz[DIMS], idx[DIMS], r = i0;
+#pragma unroll
+  for (int j = DIMS - 1; j >= 0; --j) {
+    sz[j] = static_cast<unsigned>(d.shape[j]);
+    idx[j] = r % sz[j];
+    r /= sz[j];
+  }
+  const int n_cols = static_cast<int>(d.n_cols);
+  for (int e = 0; e < FMA_ELEMS && i0 + e < total; ++e) {
+#pragma unroll
+    for (int c = 0; c < MAX_COLS; ++c) {
+      if (c >= n_cols) break;
+      const Column& col = d.col[c];
+      const int n_terms = static_cast<int>(col.n_terms);
+      float a[MAX_TERMS], b[MAX_TERMS];
+#pragma unroll
+      for (int t = 0; t < MAX_TERMS; ++t) {
+        if (t < n_terms) {
+          a[t] = load(col.a[t], idx);
+          b[t] = load(col.b[t], idx);
+        }
+      }
+      float acc = __fmul_rn(a[0], b[0]);
+      if (col.neg_first) acc = -acc;
+#pragma unroll
+      for (int t = 1; t < MAX_TERMS; ++t)
+        if (t < n_terms) acc = __fmaf_rn(a[t], b[t], acc);
+      if (col.has_add) acc = __fadd_rn(acc, load(col.add, idx));
+      reinterpret_cast<float*>(col.out.ptr)[offset(col.out, idx)] = acc;
+    }
+    // the next entry's index
+#pragma unroll
+    for (int j = DIMS - 1; j >= 0; --j) {
+      if (++idx[j] < sz[j]) break;
+      idx[j] = 0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// xla_math_kernel and score_terms_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int EXP = 0, ACOS = 1;  // ops/xla_math.py; else SINCOS
+
 __global__ void __launch_bounds__(THREADS)
-fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
-           const float* __restrict__ c, float* __restrict__ out, long long n) {
+xla_math_kernel(int op, const float* __restrict__ x, float* __restrict__ out, long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i < n) out[i] = __fmaf_rn(a[i], b[i], c[i]);
+  if (i >= n) return;
+  const float v = x[i];
+  switch (op) {
+    case EXP: out[i] = xla_math::expf_(v); break;
+    case ACOS: out[i] = xla_math::acosf_(v); break;
+    default:
+      out[i] = xla_math::sincosf_(v, true);
+      out[n + i] = xla_math::sincosf_(v, false);
+  }
+}
+
+struct ScoreConsts {
+  float normal_div, dist_div, alpha, one_minus_alpha;
+};
+
+// score.py:160-166 for one point: 0 unless found, else
+// fma(1 - alpha, exp(-d2 / dist_div), alpha * exp(-angle^2 / normal_div))
+// with angle = arccos(clamp(dot, 0, 1)) (a NaN passes the clamp)
+__device__ __forceinline__ float score_term(float d2, float dot, bool found,
+                                            const ScoreConsts& c) {
+  if (!found) return 0.0f;
+  const float cd = dot < 0.0f ? 0.0f : (dot > 1.0f ? 1.0f : dot);
+  const float ang = xla_math::acosf_(cd);
+  const float normal = xla_math::expf_(__fdiv_rn(-__fmul_rn(ang, ang), c.normal_div));
+  const float dist = xla_math::expf_(__fdiv_rn(-d2, c.dist_div));
+  return __fmaf_rn(c.one_minus_alpha, dist, __fmul_rn(c.alpha, normal));
+}
+
+// four points a thread, by float4 and 4-byte loads where ``vec``
+__global__ void __launch_bounds__(THREADS)
+score_terms_kernel(const float* __restrict__ d2, const float* __restrict__ dot,
+                   const uint8_t* __restrict__ found, const uint8_t* __restrict__ mask,
+                   float* __restrict__ out, long long n, int vec, const ScoreConsts c) {
+  const long long i = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * 4;
+  if (i >= n) return;
+  if (vec && i + 4 <= n) {
+    const float4 a = *reinterpret_cast<const float4*>(d2 + i);
+    const float4 b = *reinterpret_cast<const float4*>(dot + i);
+    const uint32_t f = *reinterpret_cast<const uint32_t*>(found + i) &
+                       *reinterpret_cast<const uint32_t*>(mask + i);
+    float4 o;
+    o.x = score_term(a.x, b.x, f & 0xffu, c);
+    o.y = score_term(a.y, b.y, (f >> 8) & 0xffu, c);
+    o.z = score_term(a.z, b.z, (f >> 16) & 0xffu, c);
+    o.w = score_term(a.w, b.w, (f >> 24) & 0xffu, c);
+    *reinterpret_cast<float4*>(out + i) = o;
+    return;
+  }
+  for (long long j = i; j < i + 4 && j < n; ++j)
+    out[j] = score_term(d2[j], dot[j], found[j] && mask[j], c);
 }
 
 // ops/lu6.py, one thread per system: the order of OpenBLAS's sgetrf (getf2,
@@ -230,28 +551,40 @@ lu6_kernel(const float* __restrict__ c, const float* __restrict__ rhs,
 
 }  // namespace
 
-// x: (n_pairs, n, k) f32; spec: (n_q, 3) int32 (kind, a column, b column
-// or -1); depth: (4, n_total) int8, the segment ends of the chained kinds;
+// x: (n_pairs, n, k) f32; spec: (n_q, 3) int32; tiles and folds:
+// ops/pairsum.py ``_tiles(n_total, n0, n, ...)`` and ``_folds(n_total)``;
 // state: (n_pairs, n_q, STATE) f32, read and written. The points are
-// n0 .. n0 + n of n_total.
-extern "C" int pairsum_run(const float* x, int n_pairs, int n, int k,
-                           const int* spec, int n_q, const int8_t* depth,
-                           int n0, int n_total, float* state, void* stream) {
-  const int total = n_pairs * n_q;
-  if (total <= 0 || n <= 0) return 0;
-  const int blocks = (total + THREADS - 1) / THREADS;
-  PAIRSUM_LAUNCH(pairsum_kernel, blocks, stream, x, n_pairs, n, k, spec, n_q,
-                 depth, n0, n_total, state);
+// n0 .. n0 + n of n_total. small: the SmallSum shape, else BigSum.
+template <class S>
+int pairsum_launch(const float* x, int n_pairs, int n, int k, const int* spec, int n_q,
+                   const int* tiles, const int* folds, int n0, int n_total, float* state,
+                   void* stream) {
+  if (k > S::MAX_K || n_q > S::MAX_Q) return static_cast<int>(cudaErrorInvalidValue);
+  PAIRSUM_LAUNCH(pairsum_kernel<S>, n_pairs, S::THREADS, stream, x, n, k, spec, n_q, tiles,
+                 folds, n0, n_total, state);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out = fma(a, b, c) elementwise over n f32 entries.
-extern "C" int fma_run(const float* a, const float* b, const float* c,
-                       float* out, long long n, void* stream) {
-  if (n <= 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  PAIRSUM_LAUNCH(fma_kernel, static_cast<unsigned>(blocks), stream, a, b, c,
-                 out, n);
+extern "C" int pairsum_run(const float* x, int n_pairs, int n, int k,
+                           const int* spec, int n_q, const int* tiles,
+                           const int* folds, int n0, int n_total, float* state,
+                           int small, void* stream) {
+  if (n_pairs <= 0 || n_q <= 0 || n <= 0) return 0;
+  return small ? pairsum_launch<SmallSum>(x, n_pairs, n, k, spec, n_q, tiles, folds, n0,
+                                          n_total, state, stream)
+               : pairsum_launch<BigSum>(x, n_pairs, n, k, spec, n_q, tiles, folds, n0,
+                                        n_total, state, stream);
+}
+
+// the chains of one FmaDesc (ops/pairsum.py ``fma_desc`` packs it)
+extern "C" int fma_run(const void* packed, void* stream) {
+  const FmaDesc* desc = static_cast<const FmaDesc*>(packed);
+  if (desc->total <= 0) return 0;
+  if (desc->n_cols > MAX_COLS || desc->total >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_block = static_cast<long long>(THREADS) * FMA_ELEMS;
+  const long long blocks = (desc->total + per_block - 1) / per_block;
+  PAIRSUM_LAUNCH(fma_chain_kernel, static_cast<unsigned>(blocks), THREADS, stream, *desc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,7 +593,33 @@ extern "C" int fma_run(const float* a, const float* b, const float* c,
 extern "C" int lu6_run(const float* c, const float* rhs, float* x, int n_sys,
                        void* stream) {
   if (n_sys <= 0) return 0;
-  PAIRSUM_LAUNCH(lu6_kernel, (n_sys + THREADS - 1) / THREADS, stream, c, rhs,
-                 x, n_sys);
+  PAIRSUM_LAUNCH(lu6_kernel, (n_sys + THREADS - 1) / THREADS, THREADS, stream,
+                 c, rhs, x, n_sys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = XLA's f32 op of x, n entries (SINCOS: cos into out[:n], sin into
+// out[n:2n]).
+extern "C" int xla_math_run(int op, const float* x, float* out, long long n,
+                            void* stream) {
+  if (n <= 0) return 0;
+  PAIRSUM_LAUNCH(xla_math_kernel, static_cast<unsigned>((n + THREADS - 1) / THREADS),
+                 THREADS, stream, op, x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scoring's per-point terms of n points (ops/score.py ``per_point``).
+extern "C" int score_terms_run(const float* d2, const float* dot, const uint8_t* found,
+                               const uint8_t* mask, float* out, long long n,
+                               float normal_div, float dist_div, float alpha,
+                               float one_minus_alpha, void* stream) {
+  if (n <= 0) return 0;
+  const int vec = (reinterpret_cast<uintptr_t>(d2) | reinterpret_cast<uintptr_t>(dot) |
+                   reinterpret_cast<uintptr_t>(out)) % 16 == 0 &&
+                  (reinterpret_cast<uintptr_t>(found) | reinterpret_cast<uintptr_t>(mask)) % 4 == 0;
+  const long long blocks = (n + 4 * THREADS - 1) / (4 * THREADS);
+  const ScoreConsts c{normal_div, dist_div, alpha, one_minus_alpha};
+  PAIRSUM_LAUNCH(score_terms_kernel, static_cast<unsigned>(blocks), THREADS, stream, d2,
+                 dot, found, mask, out, n, vec, c);
   return static_cast<int>(cudaGetLastError());
 }

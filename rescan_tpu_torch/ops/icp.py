@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import config
-from . import gnn, lu6, pairsum, search
+from . import gnn, lu6, pairsum, search, xla_math
 from .pairsum import BLOCKED, BLOCKED_TAIL, CHAIN, ONE, WINDOW
 
 # XLA folds ``1e-6 * tr / 6.0`` (icp.py:161) into one constant
@@ -37,41 +37,43 @@ _DAMP = np.float32(1.66666666e-07)
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for batches of small matrices as XLA's dot computes it:
-    per entry an FMA chain over the inner index from the first
-    product."""
-    out = a[..., :, 0, None] * b[..., None, 0, :]
-    for k in range(1, a.shape[-1]):
-        out = pairsum.fma(a[..., :, k, None].expand_as(out),
-                          b[..., None, k, :].expand_as(out), out)
-    return out
+    per entry an FMA chain over the inner index from the first product
+    (one launch; the operands read through broadcast strides)."""
+    terms = [(a[..., :, k, None], b[..., None, k, :])
+             for k in range(a.shape[-1])]
+    shape = torch.broadcast_shapes(terms[0][0].shape, terms[0][1].shape)
+    return pairsum.fma_chains([pairsum.Chain(terms)], shape)[0]
 
 
-def _rotate(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``einsum("bij,bnj->bni", R, v)`` (icp.py:101-102) in XLA's order."""
-    out = []
-    for i in range(3):
-        acc = R[:, i, 0, None] * v[..., 0]
-        for j in (1, 2):
-            acc = pairsum.fma(R[:, i, j, None].expand_as(acc), v[..., j],
-                              acc)
-        out.append(acc)
-    return torch.stack(out, -1)
+def _transform(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor,
+               nrm: torch.Tensor):
+    """``(R p + t, R n)`` (icp.py:101-102, score.py:149-150) in XLA's
+    order, both in one launch: per output ``fma(R[i,2], p2, fma(R[i,1],
+    p1, R[i,0] * p0))``, then ``+ t`` rounded on its own."""
+    def terms(v):
+        return [(R[:, None, :, j], v[..., j, None]) for j in range(3)]
+    return tuple(pairsum.fma_chains(
+        [pairsum.Chain(terms(pts), add=t[:, None, :]),
+         pairsum.Chain(terms(nrm))], pts.shape))
 
 
 def _cross(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """``jnp.cross(p, n)`` (icp.py:151): each ``a*b - c*d`` as
-    ``fma(a, b, -(c*d))``, as XLA contracts it."""
-    def comp(i, k):
-        return pairsum.fma(p[..., i], n[..., k], -(p[..., k] * n[..., i]))
-    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], -1)
+    ``fma(a, b, -(c*d))``, as XLA contracts it (one launch)."""
+    out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    pairsum.fma_chains(
+        [pairsum.Chain([(p[..., k], n[..., i]), (p[..., i], n[..., k])],
+                       neg_first=True)
+         for i, k in ((1, 2), (2, 0), (0, 1))],
+        p.shape[:-1], outs=list(out.unbind(-1)))
+    return out
 
 
 def _rotation_xyz(ax, ay, az):
-    """R = Rx(ax) @ Ry(ay) @ Rz(az) (icp.h:288-290). cos and sin are the
-    f64 values rounded to f32 (see ops/pairsum.py on XLA's)."""
-    cx, sx = (f(ax.double()).float() for f in (torch.cos, torch.sin))
-    cy, sy = (f(ay.double()).float() for f in (torch.cos, torch.sin))
-    cz, sz = (f(az.double()).float() for f in (torch.cos, torch.sin))
+    """R = Rx(ax) @ Ry(ay) @ Rz(az) (icp.h:288-290), with XLA's f32 cos
+    and sin (ops/xla_math.py, one launch for the six)."""
+    (cx, cy, cz), (sx, sy, sz) = (
+        v.unbind(-1) for v in xla_math.sincos(torch.stack([ax, ay, az], -1)))
     one = torch.ones_like(ax)
     zero = torch.zeros_like(ax)
     rx = torch.stack([torch.stack([one, zero, zero], -1),
@@ -84,6 +86,13 @@ def _rotation_xyz(ax, ay, az):
                       torch.stack([sz, cz, zero], -1),
                       torch.stack([zero, zero, one], -1)], -2)
     return _matmul(_matmul(rx, ry), rz)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's (``vsqrtps``): the
+    f64 one rounded to f32 (53 >= 2 * 24 + 2 bits). torch's own f32 sqrt
+    on the CPU misses it by an ulp on some arguments."""
+    return x.double().sqrt().float()
 
 
 def div(x: torch.Tensor, s) -> torch.Tensor:
@@ -144,8 +153,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     spec3, spec4 = _specs(N, single)
     R = T[:, :3, :3]
     t = T[:, :3, 3]
-    q = _rotate(R, obj_pts) + t[:, None, :]
-    qn = _rotate(R, obj_nrm)
+    q, qn = _transform(R, t, obj_pts, obj_nrm)
     # inactive pairs query from far away: their blocks are near no tile
     q = torch.where(active[:, None, None], q, 2e6)
     idx, d2, dot = search.nearest_gated(index, q.reshape(B * N, 3),
@@ -167,7 +175,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     mean = s1[:, 1] / cnt
     dev = d2 - mean[:, None]
     var = sums(torch.where(ok, dev * dev, 0.0)[..., None], _SPEC2)[:, 0] / cnt
-    std = torch.sqrt(var)
+    std = _sqrt(var)
     keep = (std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None])
     w = torch.where(keep, w, 0.0)
 
@@ -199,7 +207,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     x = lu6.solve(C, b)
     x = torch.where(torch.isfinite(x), x, 0.0)
 
-    new_err = torch.sqrt(s4[:, 42] / wsafe)
+    new_err = _sqrt(s4[:, 42] / wsafe)
     Rx = _rotation_xyz(x[:, 0], x[:, 1], x[:, 2])
     upd = torch.zeros((B, 4, 4), dtype=torch.float32, device=T.device)
     upd[:, :3, :3] = Rx

@@ -49,7 +49,7 @@ These are XLA:CPU's orders on this host (8 threads): Eigen's blocking
 follows its cache sizes and thread count, LLVM's vectorization the CPU.
 
 Elementwise orders of the same step, which ops/icp.py forms with
-``fma`` below:
+``fma_chains`` below:
 
 * ``R @ p + t`` and ``R @ n`` (icp.py:101-102): per output
   ``fma(R[i,2], p2, fma(R[i,1], p1, R[i,0] * p0))``, then ``+ t``.
@@ -61,18 +61,16 @@ Elementwise orders of the same step, which ops/icp.py forms with
   then ``+ 1e-20``.
 * ``_rotation_xyz`` (:40-58): ``cos``/``sin`` of each angle, then
   ``(Rx @ Ry) @ Rz``, and ``R @ c1`` (:173), ``upd @ T`` (:177), each an
-  FMA chain over the inner index from the first product. XLA's f32
-  ``cos``/``sin`` are its own; the port takes the f64 values rounded to
-  f32, which equal XLA's on every argument checked below 1e-3 rad and
-  differ by one ulp on at most 1e-3 of those up to 0.01 rad and 1e-2 of
-  those up to 0.1 rad (tests/test_torch_pairsum.py).
+  FMA chain over the inner index from the first product (``fma_chains``,
+  one launch for each product, both transforms in one). XLA's f32
+  ``cos``/``sin`` are glibc's, which ``ops/xla_math.py`` replays.
 
 The 6x6 solve's order is in ``ops/lu6.py``.
 
 A sum runs as a sequence of accumulators, one per level: level 0 takes
 ``fma(a[n], b[n], acc)`` point by point; where a segment of level k ends
 (a window of 32, a block), its sum is added into level k + 1 and level k
-restarts from 0. ``push_depths`` gives, per point, how many levels end
+restarts from 0. ``_depths_np`` gives, per point, how many levels end
 there, so the kernel and the plain version share one description. The
 levels are a state that a caller can carry: a pair's points split over
 shards in order (parallel/mesh.py, the sp mode) give the whole axis's
@@ -82,7 +80,10 @@ Dispatch is on the points' device: CUDA tensors launch the hand-written
 kernel in ``csrc/pairsum.cu`` (built with nvcc at first use into
 ``rescan_tpu_torch/_build/``, bound with ctypes, ``-fmad=false`` and
 ``__fmaf_rn``), CPU tensors take the plain PyTorch version
-(``pairsum_ref``), which is bit-identical to it.
+(``pairsum_ref``), which is bit-identical to it. The kernel runs one CTA
+per pair over tiles of its points, each piece of a segment one thread's
+chain; it reads the same description of the orders (``_tiles`` and
+``_folds``, built from ``_depths_np`` and ``fold_order``).
 """
 
 from __future__ import annotations
@@ -100,13 +101,17 @@ import torch
 
 from . import gnn
 
-WINDOW, CHAIN, BLOCKED, BLOCKED_TAIL, LANES, LANES_TAIL = range(6)
-# kinds that run as one sequential chain with segment ends; the two LANES
-# kinds sum the whole axis in one call
+(WINDOW, CHAIN, BLOCKED, BLOCKED_TAIL, LANES, LANES_TAIL, FOLDED,
+ FOLDED_TAIL) = range(8)
+# kinds that run as one sequential chain with segment ends; the LANES
+# kinds keep 32 lanes over runs of points; the FOLDED kinds sum the whole
+# axis in one call
 KINDS = (WINDOW, CHAIN, BLOCKED, BLOCKED_TAIL)
 LANE_KINDS = (LANES, LANES_TAIL)
+FOLD_KINDS = (FOLDED, FOLDED_TAIL)
 LANE_COUNT = 32     # 4 interleaved vectors of 8 lanes
 LANE_TAIL = 32      # points summed one by one after the lanes
+FOLD_WIDTH = 8      # a FOLDED sum's lanes: one vector of 8
 WINDOW_SIZE = 32
 # accumulator levels of a chained kind's state: WINDOW needs one per
 # window level (32^3 points < N <= 32^4 take four); BLOCKED beyond 8192
@@ -117,12 +122,16 @@ MAX_POINTS = WINDOW_SIZE ** LEVELS
 # added, its running total at LANE_TOTAL
 LANE_TOTAL = LANE_COUNT
 STATE = 36
+# a FOLDED sum's points, at most (one tile of the kernel)
+FOLD_MAX = 256
 # second operand "the constant 1": the entry itself is summed
 ONE = -1
 
-# the library's three kernels: the sums, ``fma`` and ops/lu6.py's solve
-LAUNCHES = {"pairsum": 0, "fma": 0, "lu6": 0}
-PLAIN_CALLS = {"pairsum": 0, "fma": 0, "lu6": 0}
+# the library's kernels: the sums, the fma chains, ops/lu6.py's solve,
+# ops/xla_math.py's functions and ops/score.py's per-point terms
+KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 
 
@@ -223,20 +232,38 @@ def _blocked_depth(n: int, end: int, tail: bool) -> int:
 def single_pair_kind(n: int, tail: bool) -> int:
     """The kind of a two-operand einsum over n points when XLA's batch is
     one pair: the batch dimension folds away and the dot fuses into a
-    loop that LLVM vectorizes as LANES (with a 32-point scalar tail where
-    an operand is read with a stride) up to 2048 points, and leaves as
-    one CHAIN from 4096 on (measured from 512 to 32768; 128 and 256
-    points, which XLA unrolls into other trees, follow LANES here)."""
+    loop that LLVM vectorizes, with a 32-point scalar tail where an
+    operand is read with a stride. Up to 256 points the loop is unrolled
+    whole and LLVM's reassociation folds its four vectors into one
+    (FOLDED: read at 128 and 256 points, ``fold_order``); from 512 to 2048
+    points it keeps four (LANES); from 4096 on the dot leaves as one
+    CHAIN (read at every power of two from 128 to 32768)."""
     if n >= 4096:
         return CHAIN
-    return LANES_TAIL if tail else LANES
+    if n >= 512:
+        return LANES_TAIL if tail else LANES
+    return FOLDED_TAIL if tail else FOLDED
+
+
+def fold_order(n_vec: int) -> list:
+    """The order in which a FOLDED sum's 8 lanes take the chunks of 8
+    points of its first ``n_vec`` points (chunk c: points 8c .. 8c + 7,
+    point 8c + l to lane l). XLA's loop holds 4 vectors over T = n_vec / 32
+    iterations (chunk 4t + v); LLVM's reassociation of the unrolled loop
+    chains vector 0's iterations in order, then each other vector's as
+    t = 1, 0, 2, 3, ..., T - 1 (read from the object code and the sums'
+    trees at T = 3, 4, 7 and 8)."""
+    t_n = n_vec // LANE_COUNT
+    ts = [1, 0] + list(range(2, t_n)) if t_n >= 2 else [0]
+    return [4 * t for t in range(t_n)] + [4 * t + v for v in (1, 2, 3)
+                                         for t in ts]
 
 
 def top_level(kind: int, n: int) -> int:
     """The state entry that holds the total after n points."""
     if kind == WINDOW:
         return len(window_sizes(n)) - 1
-    if kind in LANE_KINDS:
+    if kind in LANE_KINDS + FOLD_KINDS:
         return LANE_TOTAL
     if kind in (BLOCKED, BLOCKED_TAIL):
         return 1 if n <= 8192 else 4
@@ -263,64 +290,87 @@ def _depths_np(n: int) -> np.ndarray:
     return out
 
 
-def push_depths(n: int, device) -> torch.Tensor:
-    """``_depths_np(n)`` as a tensor on ``device``."""
-    return _depths_cached(n, str(torch.device(device)))
+def _spec_key(spec) -> tuple:
+    """A hashable key of a spec: (Q, 3) rows (kind, a column, b column)."""
+    if isinstance(spec, torch.Tensor):
+        spec = spec.tolist()
+    return tuple(tuple(int(v) for v in r) for r in np.asarray(
+        spec, np.int64).reshape(-1, 3)) if not (
+        isinstance(spec, (list, tuple)) and all(
+            isinstance(r, tuple) for r in spec)) else tuple(spec)
 
 
-@functools.lru_cache(maxsize=64)
-def _depths_cached(n: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_depths_np(n)).to(device)
+@functools.lru_cache(maxsize=256)
+def _spec_np(key: tuple) -> np.ndarray:
+    s = np.asarray(key, np.int32).reshape(-1, 3)
+    if len(s) and not np.isin(s[:, 0], KINDS + LANE_KINDS + FOLD_KINDS).all():
+        raise ValueError(f"pairsum: unknown kind in {key}")
+    return s
+
+
+@functools.lru_cache(maxsize=256)
+def _spec_on(key: tuple, device: str) -> torch.Tensor:
+    return torch.from_numpy(_spec_np(key)).to(device)
 
 
 def as_spec(spec) -> torch.Tensor:
     """(Q, 3) int32 rows (kind, a column, b column or ONE)."""
-    s = torch.as_tensor(np.asarray(spec, np.int32).reshape(-1, 3))
-    known = torch.tensor(KINDS + LANE_KINDS, dtype=torch.int32)
-    if s.numel() and not bool(torch.isin(s[:, 0], known).all()):
-        raise ValueError(f"pairsum: unknown kind in {spec}")
-    return s
+    return torch.from_numpy(_spec_np(_spec_key(spec)).copy())
 
 
 def new_state(b: int, q: int, device) -> torch.Tensor:
     return torch.zeros((b, q, STATE), dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=256)
+def _tops(key: tuple, n_total: int) -> tuple:
+    return tuple(top_level(k, n_total) for k, _, _ in key)
+
+
 def totals(state: torch.Tensor, spec, n_total: int) -> torch.Tensor:
     """(B, Q) sums held in a state after all n_total points."""
-    s = as_spec(spec)
-    tops = torch.tensor([top_level(int(k), n_total) for k in s[:, 0]],
-                        dtype=torch.long, device=state.device)
+    tops = torch.tensor(_tops(_spec_key(spec), n_total), dtype=torch.long,
+                        device=state.device)
     return state.gather(2, tops[None, :, None].expand(state.shape[0], -1,
                                                       1))[..., 0]
 
 
-def _check(x: torch.Tensor, spec: torch.Tensor, n0: int, n_total: int,
+def _check(x: torch.Tensor, key: tuple, n0: int, n_total: int,
            state: Optional[torch.Tensor]):
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"pairsum: x must be (B, n, K) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, n, k = x.shape
+    if state is not None and (state.shape != (b, len(key), STATE)
+                              or state.dtype != torch.float32
+                              or state.device != x.device):
+        raise ValueError("pairsum: state does not match the sums")
+    _check_points(key, k, n0, n, n_total)
+
+
+@functools.lru_cache(maxsize=1024)
+def _check_points(key: tuple, k: int, n0: int, n: int, n_total: int) -> None:
+    spec = _spec_np(key)
     if not (0 <= n0 and n0 + n <= n_total):
         raise ValueError(f"pairsum: points {n0}..{n0 + n} outside "
                          f"0..{n_total}")
     if n_total > MAX_POINTS:
         raise ValueError(f"pairsum: {n_total} points > {MAX_POINTS}")
-    if spec.numel() and (int(spec[:, 1].max()) >= k
-                         or int(spec[:, 1].min()) < 0
-                         or int(spec[:, 2].max()) >= k
-                         or int(spec[:, 2].min()) < ONE):
+    if len(spec) and (spec[:, 1].max() >= k or spec[:, 1].min() < 0
+                      or spec[:, 2].max() >= k or spec[:, 2].min() < ONE):
         raise ValueError(f"pairsum: spec columns outside 0..{k - 1}")
-    if state is not None and (state.shape != (b, spec.shape[0], STATE)
-                              or state.dtype != torch.float32
-                              or state.device != x.device):
-        raise ValueError("pairsum: state does not match the sums")
-    if spec.numel() and bool(torch.isin(spec[:, 0], torch.tensor(
-            LANE_KINDS, dtype=torch.int32)).any()):
+    if len(spec) and np.isin(spec[:, 0], LANE_KINDS).any():
         if (n0 % LANE_COUNT or n % LANE_COUNT or n_total % LANE_COUNT
                 or n_total < LANE_COUNT + LANE_TAIL):
             raise ValueError(f"pairsum: LANES over points {n0}..{n0 + n} "
                              f"of {n_total}")
+    if len(spec) and np.isin(spec[:, 0], FOLD_KINDS).any():
+        if (n0 or n != n_total or n_total % LANE_COUNT
+                or n_total < 2 * LANE_COUNT + LANE_TAIL
+                or n_total > FOLD_MAX):
+            raise ValueError(f"pairsum: FOLDED over points {n0}..{n0 + n} "
+                             f"of {n_total}: the whole axis in one call, "
+                             f"96..{FOLD_MAX} points")
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +467,27 @@ def _lanes(a: torch.Tensor, b: torch.Tensor, st: torch.Tensor, n0: int,
     return st
 
 
+def _folded(a: torch.Tensor, b: torch.Tensor, st: torch.Tensor,
+            n_total: int, tail: int) -> torch.Tensor:
+    """A FOLDED sum of a, b (B, n_total, Q) into the state st (B, Q,
+    STATE): lane l chains its chunks' points 8c + l in ``fold_order``;
+    the 8 lanes are halved three times into the total, and the last
+    ``tail`` points chained on one by one."""
+    v = n_total - tail
+    order = torch.tensor(fold_order(v), dtype=torch.long, device=a.device)
+    idx = order[None, :] * FOLD_WIDTH + torch.arange(
+        FOLD_WIDTH, device=a.device)[:, None]                 # (8, 4T)
+    lanes = _chain(a[:, idx], b[:, idx],
+                   st[..., :FOLD_WIDTH].transpose(1, 2), False)  # (B, 8, Q)
+    st[..., :FOLD_WIDTH] = lanes.transpose(1, 2)
+    r = st[..., :FOLD_WIDTH]
+    while r.shape[-1] > 1:
+        h = r.shape[-1] // 2
+        r = r[..., :h] + r[..., h:]
+    st[..., LANE_TOTAL] = _chain(a[:, v:], b[:, v:], r[..., 0], False)
+    return st
+
+
 def _cascade(state: torch.Tensor, depth: int) -> torch.Tensor:
     for k in range(depth):
         state[..., k + 1] = state[..., k + 1] + state[..., k]
@@ -432,10 +503,11 @@ def pairsum_ref(x: torch.Tensor, spec, n0: int = 0,
     None). Each group of quantities of one kind runs its level-0
     segments side by side and its segment ends in order."""
     _count(PLAIN_CALLS)
-    spec = as_spec(spec)
+    key = _spec_key(spec)
     b_, n, _ = x.shape
     n_total = n if n_total is None else n_total
-    _check(x, spec, n0, n_total, state)
+    _check(x, key, n0, n_total, state)
+    spec = torch.from_numpy(_spec_np(key))
     out = new_state(b_, spec.shape[0], x.device) if state is None \
         else state.clone()
     if n == 0 or spec.shape[0] == 0:
@@ -448,6 +520,13 @@ def pairsum_ref(x: torch.Tensor, spec, n0: int = 0,
             out[:, qi.to(x.device)] = _lanes(
                 a, b, out[:, qi.to(x.device)], n0, n_total,
                 LANE_TAIL if kind == LANES_TAIL else 0)
+    for kind in FOLD_KINDS:
+        qi = torch.nonzero(spec[:, 0] == kind)[:, 0]
+        if len(qi):
+            a, b, _ = _operands(x, spec[qi])
+            out[:, qi.to(x.device)] = _folded(
+                a, b, out[:, qi.to(x.device)], n_total,
+                LANE_TAIL if kind == FOLDED_TAIL else 0)
     for kind in KINDS:
         qi = torch.nonzero(spec[:, 0] == kind)[:, 0]
         if len(qi) == 0:
@@ -486,14 +565,27 @@ def pairsum_ref(x: torch.Tensor, spec, n0: int = 0,
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "pairsum.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SRC = os.path.join(_CSRC, "pairsum.cu")
+# what the library is built from: the source and the header it includes
+_SOURCES = (_SRC, os.path.join(_CSRC, "xla_math.cuh"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = ""
+
+# pairsum_kernel's two shapes (csrc/pairsum.cu BigSum, SmallSum): points
+# staged per tile, columns per point, sums per launch, pieces of one
+# chained sum per tile; the small one serves launches of a few sums over
+# few columns (scoring's means, the ICP's first rounds)
+SHAPES = {"big": (512, 16, 48, 18), "small": (256, 4, 4, 10)}
+
+
+def _shape(k: int, q: int) -> str:
+    _, max_k, max_q, _ = SHAPES["small"]
+    return "small" if k <= max_k and q <= max_q else "big"
 
 
 def load_library():
@@ -504,10 +596,11 @@ def load_library():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                               ).hexdigest()[:12]
-        out = os.path.join(gnn._BUILD_DIR, f"libpairsum-{tag}.so")
+        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for src in _SOURCES:
+            with open(src, "rb") as f:
+                h.update(f.read())
+        out = os.path.join(gnn._BUILD_DIR, f"libpairsum-{h.hexdigest()[:12]}.so")
         if not os.path.exists(out):
             nvcc = gnn.find_nvcc()
             os.makedirs(gnn._BUILD_DIR, exist_ok=True)
@@ -524,16 +617,20 @@ def load_library():
 
 
 def bind(lib):
-    """Declare the C signatures of ``pairsum_run``, ``fma_run`` and
-    ``lu6_run`` on a loaded library."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pairsum_run.restype = ctypes.c_int
-    lib.pairsum_run.argtypes = [vp, i32, i32, i32, vp, i32, vp, i32, i32,
-                                vp, vp]
-    lib.fma_run.restype = ctypes.c_int
-    lib.fma_run.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp]
-    lib.lu6_run.restype = ctypes.c_int
-    lib.lu6_run.argtypes = [vp, vp, vp, i32, vp]
+    """Declare the C signatures of the library's ``*_run`` functions on a
+    loaded library."""
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    for name, args in (
+            ("pairsum", [vp, i32, i32, i32, vp, i32, vp, vp, i32, i32, vp,
+                         i32]),
+            ("fma", [vp]),
+            ("lu6", [vp, vp, vp, i32]),
+            ("xla_math", [i32, vp, vp, i64]),
+            ("score_terms", [vp, vp, vp, vp, vp, i64, f32, f32, f32, f32])):
+        fn = getattr(lib, f"{name}_run")
+        fn.restype = ctypes.c_int
+        fn.argtypes = args + [vp]
     return lib
 
 
@@ -549,21 +646,77 @@ def run(name: str, dev: torch.device, *args) -> None:
     _count(LAUNCHES, name)
 
 
-def _launch(x: torch.Tensor, spec: torch.Tensor, n0: int, n_total: int,
+@functools.lru_cache(maxsize=256)
+def _tiles_np(n_total: int, n0: int, n: int, shape: str) -> np.ndarray:
+    """The kernel's view of ``_depths_np`` for points n0 .. n0 + n: per
+    tile of the shape's points and chained kind, the count of its pieces
+    (the parts of segments inside the tile), then each piece's end packed
+    as end << 3 | push depth, -1 for an open last piece. Raises where a
+    tile would hold more pieces than the shape takes."""
+    tile, _, _, pieces_max = SHAPES[shape]
+    d = _depths_np(n_total)
+    n_tiles = -(-n // tile)
+    out = np.full((n_tiles, len(KINDS), 1 + pieces_max), -1, np.int32)
+    for kind in KINDS:
+        ends = np.flatnonzero(d[kind][n0:n0 + n]) + n0
+        packed = (ends << 3) | d[kind][ends]
+        cuts = np.searchsorted(ends, n0 + np.arange(n_tiles + 1) * tile)
+        for t in range(n_tiles):
+            g1 = min(n0 + (t + 1) * tile, n0 + n)
+            pieces = list(packed[cuts[t]:cuts[t + 1]])
+            if not pieces or pieces[-1] >> 3 != g1 - 1:
+                pieces.append(-1)
+            if len(pieces) > pieces_max:
+                raise ValueError(f"pairsum: {len(pieces)} pieces of kind "
+                                 f"{kind} in a tile of points {n0}..{n0 + n}"
+                                 f" of {n_total}, beyond {pieces_max}")
+            out[t, kind, 0] = len(pieces)
+            out[t, kind, 1:1 + len(pieces)] = pieces
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _tiles_cached(n_total: int, n0: int, n: int, shape: str,
+                  device: str) -> torch.Tensor:
+    return torch.from_numpy(_tiles_np(n_total, n0, n, shape)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _folds_np(n_total: int) -> np.ndarray:
+    """The FOLDED and FOLDED_TAIL kinds' chunk orders over n_total points
+    (``fold_order``), after a header of their two offsets; empty orders
+    where n_total takes no FOLDED sum."""
+    orders = [fold_order(n_total - t) if (
+        n_total <= FOLD_MAX and n_total % LANE_COUNT == 0
+        and n_total >= 2 * LANE_COUNT + t) else [] for t in (0, LANE_TAIL)]
+    return np.asarray([2, 2 + len(orders[0])] + orders[0] + orders[1],
+                      np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _folds_cached(n_total: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_folds_np(n_total)).to(device)
+
+
+def _launch(x: torch.Tensor, key: tuple, n0: int, n_total: int,
             state: Optional[torch.Tensor]) -> torch.Tensor:
     dev = x.device
     b_, n, k = x.shape
-    q = spec.shape[0]
+    q = len(key)
+    shape = _shape(k, q)
+    _, max_k, max_q, _ = SHAPES[shape]
+    if k > max_k or q > max_q:
+        raise ValueError(f"pairsum: {q} sums over {k} columns: beyond the "
+                         f"kernel's {max_q} sums, {max_k} columns")
     x = x.contiguous()
-    spec_d = spec.to(dev).contiguous()
-    out = new_state(b_, q, dev)
-    if state is not None:
-        out.copy_(state)
+    out = new_state(b_, q, dev) if state is None else state.clone()
     if n == 0 or q == 0 or b_ == 0:
         return out
-    depth = push_depths(n_total, dev)
-    run("pairsum", dev, x.data_ptr(), b_, n, k, spec_d.data_ptr(), q,
-        depth.data_ptr(), n0, n_total, out.data_ptr())
+    tiles = _tiles_cached(n_total, n0, n, shape, str(dev))
+    run("pairsum", dev, x.data_ptr(), b_, n, k,
+        _spec_on(key, str(dev)).data_ptr(), q, tiles.data_ptr(),
+        _folds_cached(n_total, str(dev)).data_ptr(), n0, n_total,
+        out.data_ptr(), shape == "small")
     return out
 
 
@@ -574,14 +727,14 @@ def pairsum(x: torch.Tensor, spec, n0: int = 0, n_total: Optional[int] = None,
     when None). ``spec``: (Q, 3) rows (kind, a column, b column or ONE);
     ``n_total``: the whole axis's length (n when None). ``totals`` reads
     the sums once every point is in."""
-    s = as_spec(spec)
     n_total = x.shape[1] if n_total is None else n_total
     if x.is_cuda:
-        _check(x, s, n0, n_total, state)
-        return _launch(x, s, n0, n_total, state)
+        key = _spec_key(spec)
+        _check(x, key, n0, n_total, state)
+        return _launch(x, key, n0, n_total, state)
     if x.device.type != "cpu":
         raise ValueError(f"pairsum: unsupported device {x.device}")
-    return pairsum_ref(x, s, n0, n_total, state)
+    return pairsum_ref(x, spec, n0, n_total, state)
 
 
 def sums(x: torch.Tensor, spec) -> torch.Tensor:
@@ -589,19 +742,112 @@ def sums(x: torch.Tensor, spec) -> torch.Tensor:
     return totals(pairsum(x, spec), spec, x.shape[1])
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c rounded once, elementwise over the broadcast float32
-    operands, as XLA's contracted multiply-adds compute it: CUDA tensors
-    launch the library's ``fma_kernel`` (``__fmaf_rn``), CPU tensors take
-    ``gnn._fma32`` (f64 with round-to-odd), which equals it."""
-    if not (a.is_cuda or b.is_cuda or c.is_cuda):
+# ---------------------------------------------------------------------------
+# Chains of fused multiply-adds
+# ---------------------------------------------------------------------------
+
+# fma_chain_kernel's descriptor (csrc/pairsum.cu FmaDesc), in int64 words:
+# the index's 4 sizes, its total, the column count, then per column 3
+# flags and 10 operands of (address, 4 strides)
+DIMS, MAX_TERMS, MAX_COLS = 4, 4, 4
+_OPERAND = 1 + DIMS
+_COLUMN = 3 + (2 + 2 * MAX_TERMS) * _OPERAND
+_DESC = DIMS + 2 + MAX_COLS * _COLUMN
+
+
+class Chain:
+    """One output of ``fma_chains``: the first term's product (negated
+    where ``neg_first``), then fma(a, b, acc) for each further term (a, b)
+    in order, then ``+ add`` rounded on its own. Operands are float32
+    tensors that broadcast to the launch's shape."""
+
+    def __init__(self, terms, neg_first: bool = False, add=None):
+        self.terms = list(terms)
+        self.neg_first, self.add = neg_first, add
+
+    def plain(self, shape) -> torch.Tensor:
+        terms = [(a.expand(shape), b.expand(shape)) for a, b in self.terms]
+        a, b = terms.pop(0)
+        acc = -(a * b) if self.neg_first else a * b
+        for a, b in terms:
+            acc = gnn._fma32(a, b, acc)
+        return acc + self.add if self.add is not None else acc
+
+    def operands(self) -> list:
+        return [t for ab in self.terms for t in ab] + (
+            [] if self.add is None else [self.add])
+
+
+def _operand(desc: np.ndarray, at: int, t: torch.Tensor, shape) -> None:
+    v = t.expand(shape)
+    if any(st < 0 for st in v.stride()) or sum(
+            (sz - 1) * st for sz, st in zip(shape, v.stride())) >= 1 << 32:
+        raise ValueError("fma_chains: an operand reaches 2^32 entries")
+    pad = DIMS - len(shape)
+    desc[at] = v.data_ptr()
+    desc[at + 1 + pad:at + 1 + DIMS] = v.stride()
+
+
+def fma_chains(chains, shape, outs=None) -> list:
+    """The outputs of ``chains`` (``Chain``s) over the broadcast index
+    ``shape`` (at most 4 dimensions), into ``outs`` (tensors of that
+    shape, views allowed) or new contiguous tensors: on CUDA operands one
+    ``fma_chain_kernel`` launch for all of them, each operand read
+    through its strides (a broadcast one is not copied); on CPU operands
+    the plain chains (``gnn._fma32``, which equals it)."""
+    shape = torch.Size(shape)
+    ops = [t for c in chains for t in c.operands()]
+    if any(t.dtype != torch.float32 for t in ops):
+        raise ValueError("fma_chains: operands must be float32")
+    if not any(t.is_cuda for t in ops):
         _count(PLAIN_CALLS, "fma")
-        return gnn._fma32(a, b, c)
-    a, b, c = (t.contiguous() for t in torch.broadcast_tensors(a, b, c))
-    if any(t.dtype != torch.float32 for t in (a, b, c)):
-        raise ValueError("fma: operands must be float32")
-    out = torch.empty_like(a)
-    if out.numel():
-        run("fma", out.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            out.data_ptr(), out.numel())
-    return out
+        got = [c.plain(shape) for c in chains]
+        if outs is None:
+            return got
+        for o, g in zip(outs, got):
+            o.copy_(g)
+        return outs
+    dev = ops[0].device
+    if (len(shape) > DIMS or len(chains) > MAX_COLS
+            or any(not 1 <= len(c.terms) <= MAX_TERMS for c in chains)
+            or any(t.device != dev for t in ops)):
+        raise ValueError(f"fma_chains: {len(chains)} chains over {shape} "
+                         f"beyond the kernel's {MAX_COLS} chains of "
+                         f"{MAX_TERMS} terms over {DIMS} dimensions, or "
+                         f"operands on other devices")
+    if outs is None:
+        outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+                for _ in chains]
+    elif any(o.shape != shape or o.device != dev or o.dtype != torch.float32
+             for o in outs):
+        raise ValueError("fma_chains: outputs must be float32 of the shape")
+    if shape.numel():
+        desc = fma_desc(chains, shape, outs)       # alive through the call
+        run("fma", dev, desc.ctypes.data)
+    return outs
+
+
+def fma_desc(chains, shape, outs) -> np.ndarray:
+    """fma_chain_kernel's descriptor of ``chains`` over ``shape``, into
+    ``outs`` (float32 tensors of that shape)."""
+    if shape.numel() >= 1 << 31:
+        raise ValueError(f"fma_chains: {shape.numel()} entries >= 2^31")
+    desc = np.zeros(_DESC, np.int64)
+    desc[DIMS - len(shape):DIMS] = shape
+    desc[:DIMS - len(shape)] = 1
+    desc[DIMS] = shape.numel()
+    desc[DIMS + 1] = len(chains)
+    for j, (c, out) in enumerate(zip(chains, outs)):
+        at = DIMS + 2 + j * _COLUMN
+        desc[at:at + 3] = (len(c.terms), c.neg_first, c.add is not None)
+        at += 3
+        for t in (out, c.add):
+            if t is not None:
+                _operand(desc, at, t, shape)
+            at += _OPERAND
+        for a, b in c.terms:
+            _operand(desc, at, a, shape)
+            _operand(desc, at + MAX_TERMS * _OPERAND, b, shape)
+            at += _OPERAND
+    return desc
+

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
-from . import gnn, icp, pairsum, search
+from . import gnn, icp, pairsum, search, xla_math
 
 # the sum of a hypothesis's per-point scores: jnp.sum's order
 # (rescan_tpu/ops/score.py:168; ops/pairsum.py)
@@ -33,6 +33,16 @@ MAX_QUERIES_PER_LAUNCH = 1 << 22
 # cos(deg2rad(35)) formed in f32, as the reference's jitted code forms it
 SCORE_COS_GATE = float(torch.cos(torch.deg2rad(
     torch.tensor(config.SCORE_MAX_ANGLE_DEG, dtype=torch.float32))))
+
+
+# the per-point terms' constants in f32, as XLA folds them
+_ALPHA = float(np.float32(config.SCORE_ALPHA))
+_ONE_MINUS_ALPHA = float(np.float32(1.0 - config.SCORE_ALPHA))
+_NORMAL_DIV = float(np.float32(2.0 * config.SCORE_NORMAL_SIGMA ** 2))
+
+
+def _dist_div(sigma) -> float:
+    return float(np.float32(2.0) * np.float32(sigma) * np.float32(sigma))
 
 
 def _pow2(n: int) -> int:
@@ -76,27 +86,52 @@ def _score_terms(index: gnn.SortedSlab, pts_all: torch.Tensor,
     nrm = nrm_all[owner]
     mask = mask_all[owner]
     # the transforms as XLA computes them (ops/pairsum.py)
-    q = icp._rotate(R, pts) + t[:, None, :]
-    qn = icp._rotate(R, nrm)
+    q, qn = icp._transform(R, t, pts, nrm)
     h, pp = mask.shape
     d2, dot, found = search.gated_min(index, q.reshape(h * pp, 3),
                                       qn.reshape(h * pp, 3), radius,
                                       SCORE_COS_GATE)
-    found = found.reshape(h, pp) & mask
-    d2 = torch.where(found, d2.reshape(h, pp), 0.0)
-    dot = dot.reshape(h, pp).clamp(0.0, 1.0)
-    angle = torch.arccos(dot)
-    s2 = float(np.float32(2.0) * np.float32(sigma) * np.float32(sigma))
-    normal = torch.exp(icp.div(-(angle * angle),
-                               2.0 * config.SCORE_NORMAL_SIGMA ** 2))
-    dist = torch.exp(icp.div(-d2, s2))
-    # XLA contracts the sum of the two weighted terms into one fma; its
-    # f32 exp and arccos are its own, which torch's miss by an ulp on some
-    # arguments (tests/test_torch_score.py)
-    per_pt = pairsum.fma(
-        torch.full_like(dist, np.float32(1.0 - config.SCORE_ALPHA)), dist,
-        config.SCORE_ALPHA * normal)
-    return torch.where(found, per_pt, 0.0), mask
+    return per_point(d2.reshape(h, pp), dot.reshape(h, pp),
+                     found.reshape(h, pp), mask, sigma), mask
+
+
+def per_point_ref(d2: torch.Tensor, dot: torch.Tensor, found: torch.Tensor,
+                  mask: torch.Tensor, sigma) -> torch.Tensor:
+    """The plain PyTorch ``per_point``."""
+    pairsum._count(pairsum.PLAIN_CALLS, "score_terms")
+    found = found & mask
+    d2 = torch.where(found, d2, 0.0)
+    angle = xla_math.acos_ref(dot.clamp(0.0, 1.0))
+    normal = xla_math.exp_ref(icp.div(-(angle * angle), _NORMAL_DIV))
+    dist = xla_math.exp_ref(icp.div(-d2, _dist_div(sigma)))
+    # XLA contracts the sum of the two weighted terms into one fma
+    per_pt = gnn._fma32(dist.new_tensor(_ONE_MINUS_ALPHA), dist,
+                        _ALPHA * normal)
+    return torch.where(found, per_pt, 0.0)
+
+
+def per_point(d2: torch.Tensor, dot: torch.Tensor, found: torch.Tensor,
+              mask: torch.Tensor, sigma) -> torch.Tensor:
+    """Per-point scores (h, Pp) from K1's (h, Pp) d2, normal dot and found
+    flags and the points' mask, in XLA's order (score.py:160-166): the
+    clamp, XLA's f32 arccos and two exps (ops/xla_math.py), the true
+    divisions, the contracted fma, the mask. CUDA tensors launch
+    ``score_terms_kernel`` (csrc/pairsum.cu, one pass), CPU tensors take
+    ``per_point_ref``; the two give the same bits."""
+    if not d2.is_cuda:
+        return per_point_ref(d2, dot, found, mask, sigma)
+    if not (d2.shape == dot.shape == found.shape == mask.shape) or \
+            d2.dtype != torch.float32 or dot.dtype != torch.float32:
+        raise ValueError("per_point: want equal shapes, float32 d2/dot")
+    d2, dot = d2.contiguous(), dot.contiguous()
+    found, mask = found.contiguous(), mask.contiguous()
+    out = torch.empty_like(d2)
+    if out.numel():
+        pairsum.run("score_terms", d2.device, d2.data_ptr(), dot.data_ptr(),
+                    found.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                    out.numel(), _NORMAL_DIV, _dist_div(sigma), _ALPHA,
+                    _ONE_MINUS_ALPHA)
+    return out
 
 
 def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,

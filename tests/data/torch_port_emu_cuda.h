@@ -1,10 +1,13 @@
 // Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu
-// and pairsum.cu use, so that their kernel logic can be built with g++ and
-// run on the CPU (tests/test_torch_gnn_emulated.py,
-// tests/test_torch_pairsum.py). A block is one warp: 32 std::threads that
-// meet at a barrier for every warp collective; blocks run one after
-// another. cp.async becomes a plain copy; the f32 intrinsics are the host's
-// IEEE operations (fmaf is a correctly rounded fused multiply-add).
+// and pairsum.cu (with xla_math.cuh) use, so that their kernel logic can
+// be built with g++ and run on the CPU (tests/test_torch_gnn_emulated.py,
+// tests/test_torch_pairsum.py). In emulate_launch a block is one warp: 32
+// std::threads that meet at a barrier for every warp collective; in
+// emulate_block_launch a block is any number of std::threads that meet at
+// a barrier for every __syncthreads (no warp collectives); blocks run one
+// after another. cp.async becomes a plain copy; the f32 and f64
+// intrinsics are the host's IEEE operations (fmaf and fma are correctly
+// rounded fused multiply-adds).
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -64,6 +67,22 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float __fsqrt_rn(float a) { return sqrtf(a); }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __fma_rn(double a, double b, double c) { return fma(a, b, c); }
+inline float __double2float_rn(double a) { return static_cast<float>(a); }
+inline int __double2int_rz(double a) { return static_cast<int>(a); }
+inline float __uint_as_float(unsigned v) {
+  float f;
+  memcpy(&f, &v, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned v;
+  memcpy(&v, &f, 4);
+  return v;
+}
+inline int __float_as_int(float f) { return static_cast<int>(__float_as_uint(f)); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
@@ -112,5 +131,25 @@ inline void emulate_launch(unsigned grid, const std::function<void()>& body) {
         body();
       });
     for (auto& t : lanes) t.join();
+  }
+}
+
+// stands in for kernel<<<grid, threads>>>(...) of a kernel that meets at
+// __syncthreads
+static std::barrier<>* g_block;
+inline void __syncthreads() { g_block->arrive_and_wait(); }
+inline void emulate_block_launch(unsigned grid, unsigned threads,
+                                 const std::function<void()>& body) {
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    std::barrier<> block(threads);
+    g_block = &block;
+    std::vector<std::thread> ts;
+    for (unsigned t = 0; t < threads; ++t)
+      ts.emplace_back([&body, t] {
+        threadIdx.x = t;
+        body();
+      });
+    for (auto& t : ts) t.join();
   }
 }

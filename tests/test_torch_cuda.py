@@ -1,5 +1,6 @@
-"""The CUDA kernels (gated NN, per-pair sums) against their plain PyTorch
-versions, and the port's paths that run them, on the card.
+"""The CUDA kernels (gated NN; per-pair sums, fma chains, the 6x6 solve,
+XLA's f32 math and scoring's per-point terms) against their plain
+PyTorch versions, and the port's paths that run them, on the card.
 
 Imports no JAX, so it runs on a machine without it:
 
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from rescan_tpu_torch.ops import gnn
+from rescan_tpu_torch.ops import gnn, pairsum
 
 pytestmark = pytest.mark.cuda
 
@@ -323,8 +324,9 @@ def test_renders_on_card_match_cpu(cuda):
 # The per-pair sums and the ICP on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,parts", [(1024, 1), (4096, 1), (4096, 4),
-                                     (2048, 8), (16384, 1), (32768, 4)])
+@pytest.mark.parametrize("n,parts", [(128, 1), (256, 2), (1024, 1),
+                                     (4096, 1), (4096, 4), (2048, 8),
+                                     (16384, 1), (32768, 4)])
 def test_pairsum_kernel_bit_identical_to_plain(cuda, n, parts):
     """ops/csrc/pairsum.cu against the plain version on the card: every
     kind, over the whole axis and chained over runs of points (from 16384
@@ -390,21 +392,183 @@ def lu6_systems(kind: str, seed: int = 0, count: int = 2000):
     return c, b
 
 
+def chain_cases(rng, device="cpu"):
+    """fma_chains' shapes on the step's and scoring's operands: the two
+    transforms (R broadcast over the points, t added), the cross product
+    (negated first product, strided views, outputs into a (..., 3)
+    tensor's columns), 3x3 and 4x4 products, a one-term product broadcast
+    from a column, and fma(a, b, c) as the chain c * 1, then a * b;
+    operands with products that cancel (parallel p and n, an addend
+    against its product), subnormal entries, products of two tiny values
+    below FLT_MIN, and huge entries."""
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+    b, n = 6, 300
+    R, t, p, nr = f(b, 3, 3), f(b, 3), f(b, n, 3), f(b, n, 3)
+    p[0, :20] = 1e-20
+    nr[0, :20] = -2e-20                  # products of ~-2e-40
+    p[2, :20] = 1e-40                    # subnormal entries
+    nr[3, 10:30] = -3e-39
+    R[4] *= 1e-21                        # R p of ~1e-21, R R^T of ~1e-42
+    nr[1, :20] = 3e30
+    nr[5, :40] = p[5, :40] * (1 + 1e-7 * f(40, 1))   # p x n cancels
+    A, B4 = f(b, 4, 4), f(b, 4, 4)
+    c = -(p[..., 0] * nr[..., 1]) * (1 + 1e-7 * f(b, n))
+    c[:, 100:150] = 1e-40
+    one = torch.ones((), device=device)
+    out3 = torch.empty(b, n, 3, device=device)
+    cases = []
+    terms = [(R[:, None, :, j], p[..., j, None]) for j in range(3)]
+    nterms = [(R[:, None, :, j], nr[..., j, None]) for j in range(3)]
+    cases.append(([pairsum.Chain(terms, add=t[:, None, :]),
+                   pairsum.Chain(nterms)], p.shape, None))
+    cases.append(([pairsum.Chain([(p[..., k], nr[..., i]),
+                                  (p[..., i], nr[..., k])], neg_first=True)
+                   for i, k in ((1, 2), (2, 0), (0, 1))], p.shape[:-1],
+                  list(out3.unbind(-1))))
+    for a, bb in ((R, R.transpose(1, 2)), (A, B4)):
+        mt = [(a[..., :, k, None], bb[..., None, k, :])
+              for k in range(a.shape[-1])]
+        cases.append(([pairsum.Chain(mt)], a.shape, None))
+    cases.append(([pairsum.Chain([(c, one), (p[..., 0], nr[..., 1])]),
+                   pairsum.Chain([(f(b, 1), p[..., 2])])], (b, n), None))
+    return cases
+
+
+def xla_math_args(rng, n: int = 20000) -> torch.Tensor:
+    """Arguments over what the pipeline gives XLA's exp, arccos, cos and
+    sin, and their edges: the clamps of exp, 0 and +-1, subnormals, NaN,
+    +-inf, the reduction ranges of sin and cos."""
+    edges = np.array([0.0, -0.0, 1.0, -1.0, 1e-45, -1e-40, 1.1754942e-38,
+                      np.inf, -np.inf, np.nan, 3.4e38, -87.8, -87.5, -88.0,
+                      -104.0, 88.7, 88.8, 89.0, 0.75, 0.74999994, 2 ** -12,
+                      119.5, 120.0, -1e30, 0.4375, 2.4375], np.float32)
+    x = np.concatenate([rng.uniform(-5, 0, n // 4), rng.uniform(0, 1, n // 4),
+                        rng.uniform(-0.3, 0.3, n // 4),
+                        rng.uniform(-1, 1, n // 4) * 10.0 ** rng.uniform(
+                            -8, 6, n // 4), edges]).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def score_inputs(rng, h: int = 40, pp: int = 256, device="cpu"):
+    """K1-like per-point inputs: d2 up to r^2, dots over [-0.2, 1.1] (the
+    clamp's both sides) with a few NaNs, a third not found, padding
+    masked."""
+    d2 = torch.from_numpy((rng.random((h, pp)) * 0.01).astype(np.float32))
+    dot = torch.from_numpy(rng.uniform(-0.2, 1.1, (h, pp)).astype(
+        np.float32))
+    dot[0, :3] = float("nan")
+    found = torch.from_numpy(rng.random((h, pp)) < 0.67)
+    mask = torch.from_numpy(np.arange(pp)[None] < rng.integers(
+        100, pp + 1, (h, 1)))
+    return tuple(t.to(device) for t in (d2, dot, found, mask))
+
+
+@pytest.mark.parametrize("n,parts", [(256, 1), (4096, 4), (32768, 8)])
+def test_pairsum_small_shape_bit_identical_to_plain(cuda, n, parts):
+    """The kernel's small shape (a few sums over few columns, as scoring's
+    means) on the card, whole axis and chained runs."""
+    from rescan_tpu_torch.ops.pairsum import (BLOCKED_TAIL, CHAIN, LANES_TAIL,
+                                              ONE, WINDOW)
+    spec = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (LANES_TAIL, 1, 2),
+            (BLOCKED_TAIL, 2, 3)]
+    assert pairsum._shape(4, len(spec)) == "small"
+    rng = np.random.default_rng(n + parts)
+    x = torch.from_numpy((rng.normal(size=(40, n, 4))
+                          * (rng.random((40, n, 4)) < 0.8)).astype(
+                              np.float32)).to(cuda)
+    m = n // parts
+    sk = sp = None
+    for k in range(parts):
+        xs = x[:, k * m:(k + 1) * m].contiguous()
+        sk = pairsum.pairsum(xs, spec, k * m, n, sk)
+        sp = pairsum.pairsum_ref(xs.cpu(), spec, k * m, n, sp)
+    assert torch.equal(sk.cpu().view(torch.int32), sp.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_pairsum_folded_bit_identical_to_plain(cuda, n):
+    """The one-pair kinds of 128 and 256 points (FOLDED, FOLDED_TAIL)
+    beside the chained ones, on the card against the plain version."""
+    from rescan_tpu_torch.ops.pairsum import (BLOCKED, CHAIN, FOLDED,
+                                              FOLDED_TAIL, ONE, WINDOW)
+    spec = [(FOLDED, 0, 1), (FOLDED_TAIL, 2, 3), (FOLDED_TAIL, 4, ONE),
+            (WINDOW, 0, ONE), (BLOCKED, 1, 4), (CHAIN, 3, 2)]
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.normal(size=(5, n, 5))
+                          * (rng.random((5, n, 5)) < 0.8)).astype(
+                              np.float32)).to(cuda)
+    got = pairsum.pairsum(x, spec)
+    want = pairsum.pairsum_ref(x.cpu(), spec)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_fma_chains_bit_identical_to_plain(cuda):
+    """fma_chain_kernel (one launch per case: the two transforms, the
+    cross product into a tensor's columns, 3x3 and 4x4 products, a
+    one-term product and an fma with an addend) against the plain chains
+    on the CPU, bit for bit."""
+    for chains, shape, outs in chain_cases(np.random.default_rng(11), cuda):
+        pairsum.reset_counts()
+        got = pairsum.fma_chains(chains, shape, outs)
+        assert pairsum.LAUNCHES["fma"] == 1
+        for g, c in zip(got, chains):
+            cpu = pairsum.Chain(
+                [(a.cpu(), b.cpu()) for a, b in c.terms], c.neg_first,
+                None if c.add is None else c.add.cpu())
+            w = cpu.plain(torch.Size(shape))
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w.view(torch.int32))
+
+
+def test_xla_math_kernel_bit_identical_to_plain(cuda):
+    """xla_math_kernel (exp, arccos, cos and sin together) on the card
+    against the plain versions on the CPU, bit for bit (a NaN equal to
+    any NaN)."""
+    from rescan_tpu_torch.ops import lu6, xla_math
+    x = xla_math_args(np.random.default_rng(12), 200_000)
+    xc = x.to(cuda)
+    assert lu6.same_bits(xla_math.exp(xc).cpu(), xla_math.exp_ref(x))
+    assert lu6.same_bits(xla_math.acos(xc).cpu(), xla_math.acos_ref(x))
+    cs = xla_math.sincos(xc).cpu()
+    assert lu6.same_bits(cs[0], xla_math.cos_ref(x))
+    assert lu6.same_bits(cs[1], xla_math.sin_ref(x))
+
+
+def test_score_terms_bit_identical_to_plain(cuda):
+    """score_terms_kernel on the card against ops/score.py's
+    per_point_ref on the CPU, bit for bit."""
+    from rescan_tpu_torch.ops import lu6, score
+    inputs = score_inputs(np.random.default_rng(13), 4096, 256)
+    want = score.per_point_ref(*inputs, 0.1)
+    pairsum.reset_counts()
+    got = score.per_point(*(t.to(cuda) for t in inputs), 0.1)
+    assert pairsum.LAUNCHES["score_terms"] == 1
+    assert lu6.same_bits(got.cpu(), want)
+
+
 def test_fma_and_lu6_kernels_bit_identical_to_plain(cuda):
-    """The library's other two kernels on the card: ``pairsum.fma``
-    against gnn._fma32 on broadcast operands, and ``lu6.solve`` against
-    ``lu6.solve_ref`` on tests/test_torch_lu6.py's systems of every
-    kind."""
+    """The library's fma chains and solve on the card: a one-term chain
+    with an addend (a * b, then + c) and fma(a, b, c) (the chain c * 1,
+    then a * b) on a broadcast operand, in one launch, against a * b + c
+    and gnn._fma32; and ``lu6.solve`` against ``lu6.solve_ref`` on
+    tests/test_torch_lu6.py's systems of every kind."""
     from rescan_tpu_torch.ops import lu6, pairsum
     rng = np.random.default_rng(4)
     a = torch.from_numpy(rng.normal(size=(64, 1)).astype(np.float32)).to(cuda)
     b, c = (torch.from_numpy(rng.normal(size=(64, 4096)).astype(np.float32))
             .to(cuda) for _ in "bc")
+    one = torch.ones((), device=cuda)
     pairsum.reset_counts()
-    got = pairsum.fma(a, b, c)
+    prod, fused = pairsum.fma_chains(
+        [pairsum.Chain([(a, b)], add=c), pairsum.Chain([(c, one), (a, b)])],
+        b.shape)
     assert pairsum.LAUNCHES["fma"] == 1
+    want = a.expand_as(b) * b + c
+    assert torch.equal(prod.view(torch.int32), want.view(torch.int32))
     want = gnn._fma32(a.expand_as(b), b, c)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
     for kind in ("spd", "icp", "general", "singular"):
         cm, rhs = (torch.from_numpy(v).to(cuda) for v in lu6_systems(kind, 3))
         assert lu6.same_bits(lu6.solve(cm, rhs), lu6.solve_ref(cm, rhs)), kind
@@ -430,10 +594,8 @@ def test_icp_on_card_matches_cpu(cuda):
     the card (K2, pairsum, fma and lu6) and on the CPU (their plain
     versions): every pose and error bit for bit, the same iteration count
     and final active set. Every division by a constant divides by a
-    device tensor (ops/icp.py ``div``); what could still part the two is
-    the rotation's cos and sin, the card's f64 values against the CPU's,
-    each rounded to f32 (an f64 ulp apart at most, which rounding to f32
-    hides but on a 2^-29 share of arguments)."""
+    device tensor (ops/icp.py ``div``), and the rotation's cos and sin
+    are XLA's on both (ops/xla_math.py)."""
     from rescan_tpu_torch.ops import icp, pairsum
     rng = np.random.default_rng(12345)
     scene_pts, scene_nrm = _wavy_surface(rng, 2500)
@@ -459,7 +621,8 @@ def test_icp_on_card_matches_cpu(cuda):
                                                     val)),
             slab, torch.from_numpy(T0).to(dev), 0.10, np.deg2rad(60.0))
         launched = gnn.LAUNCHES["nearest_gated"] and min(
-            pairsum.LAUNCHES.values())
+            pairsum.LAUNCHES[k] for k in ("pairsum", "fma", "lu6",
+                                          "xla_math"))
         assert bool(launched) == (dev != "cpu")
         out[str(dev)] = (T.cpu().numpy(), err.cpu().numpy(),
                          act.cpu().numpy(), n_iter)

@@ -79,9 +79,8 @@ def test_icp_step_matches_jax_slab_engine():
     are bit-identical, and the port forms every sum, product and the 6x6
     solve in the order XLA compiles them (ops/pairsum.py, ops/lu6.py):
     measured bit-identical at all four states, ill-conditioned pairs
-    included; only the rotation's cos and sin can differ (by one ulp on
-    a small share of angles, tests/test_torch_pairsum.py), which no pair
-    of this batch meets."""
+    included; the rotation's cos and sin are XLA's own too
+    (ops/xla_math.py)."""
     scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
         _indexed_case(12345)
     js, slab = _slab_pair(scene_pts, scene_nrm)
@@ -118,8 +117,7 @@ def test_indexed_icp_matches_jax_slab_engine():
     iterations: JAX's loop is still running after the port's count less
     one and done after the port's count (pair 1, the ill-conditioned
     one, runs 9). Measured bit-identical, pair 1 included (it drifted by
-    3.1e-4 while the sums were a fixed tree): nothing differs but what
-    the rotation's cos and sin could (see
+    3.1e-4 while the sums were a fixed tree; see
     test_icp_step_matches_jax_slab_engine)."""
     scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
         _indexed_case(12345)
@@ -177,6 +175,35 @@ def test_icp_matches_jax_slab_engine_well_conditioned(seed, theta, t):
     np.testing.assert_allclose(terr.numpy(), jerr, rtol=0, atol=1e-6)
     _, _, act_short = jicp.icp_align_indexed(*jargs, max_iter=n_iter - 1)
     assert np.asarray(act_short).all()
+
+
+@pytest.mark.parametrize("n_pts,seed", [(100, 1), (200, 3)])
+def test_one_pair_icp_of_few_points_matches_jax_slab_engine(n_pts, seed):
+    """One pair padded to 128 or 256 points (the augmentation ICP's
+    smallest placements, segment_transfer.py:204-209): XLA folds the
+    one-pair sums' vector lanes there (pairsum's FOLDED kinds); the
+    port's whole loop equals the JAX package's bit for bit."""
+    rng = np.random.default_rng(seed)
+    scene_pts, scene_nrm = _make_surface(rng, 2500)
+    inv = np.linalg.inv(_rigid(0.03, [0.02, -0.01, 0.01]))
+    sel = rng.choice(2500, n_pts, replace=False)
+    moved = (scene_pts[sel] @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32)
+    moved_n = (scene_nrm[sel] @ inv[:3, :3].T).astype(np.float32)
+    upts, unrm, umask = ticp.pad_batch([moved], [moved_n])
+    assert upts.shape[1] == (128 if n_pts <= 128 else 256)
+    own, val = np.zeros(1, np.int32), np.ones(1, bool)
+    T0 = np.eye(4, dtype=np.float32)[None]
+    js, slab = _slab_pair(scene_pts, scene_nrm)
+    jT, jerr, jact = (np.asarray(x) for x in jicp.icp_align_indexed(
+        jnp.asarray(upts), jnp.asarray(unrm), jnp.asarray(umask),
+        jnp.asarray(own), jnp.asarray(val), js, jnp.asarray(T0), 0.10,
+        MAX_ANGLE))
+    tT, terr, tact, _ = ticp.icp_align_indexed(
+        *(torch.from_numpy(a) for a in (upts, unrm, umask, own, val)), slab,
+        torch.from_numpy(T0), 0.10, MAX_ANGLE)
+    np.testing.assert_array_equal(tT.numpy(), jT)
+    np.testing.assert_array_equal(terr.numpy(), jerr)
+    np.testing.assert_array_equal(tact.numpy(), jact)
 
 
 def test_batched_icp_matches_jax_default_engine():

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from rescan_tpu_torch.ops import icp as ticp, lu6, pairsum
+from rescan_tpu_torch.ops import icp as ticp, lu6, pairsum, xla_math
 from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
-                                          LANES, LANES_TAIL, ONE, WINDOW)
-from test_torch_cuda import lu6_systems
+                                          FOLDED, FOLDED_TAIL, LANES,
+                                          LANES_TAIL, ONE, WINDOW)
+from test_torch_cuda import (chain_cases, lu6_systems, score_inputs,
+                             xla_math_args)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = os.path.join(HERE, "data", "torch_port_emu_cuda.h")
@@ -57,15 +59,16 @@ def test_window_sum_matches_jnp_sum(n):
 
 @pytest.mark.parametrize("b,n", [(8, 1024), (8, 2048), (64, 4096),
                                  (8, 8192), (4, 16384), (2, 32768),
-                                 (1, 512), (1, 1024), (1, 2048), (1, 4096),
-                                 (1, 16384), (1, 32768)])
+                                 (1, 128), (1, 256), (1, 512), (1, 1024),
+                                 (1, 2048), (1, 4096), (1, 16384),
+                                 (1, 32768)])
 def test_icp_sum_rounds_match_xla(b, n):
     """The ICP step's rounds 3 and 4 (w, w q, w p2; C, b, e2), laid out
     and specified as ops/icp.py lays them out, against the einsums of
     icp.py:142-165 at the same batch: many pairs (XLA's gemv and Eigen
-    orders) and one pair (its vectorized loop, or one chain from 4096
-    points); from 16384 points C's 8 slices and their two trees
-    (BLOCKED, BLOCKED_TAIL)."""
+    orders) and one pair (its vectorized loop, folded into one vector up
+    to 256 points, or one chain from 4096 points); from 16384 points C's
+    8 slices and their two trees (BLOCKED, BLOCKED_TAIL)."""
     rng = np.random.default_rng(b * n)
     w = _w(rng, b, n)
     q, p2 = (rng.normal(size=(b, n, 3)).astype(np.float32) for _ in "ab")
@@ -171,7 +174,7 @@ def test_elementwise_orders_match_xla():
             R, p, nr, t, c1, A3, B3, A4, B4)
     tR, tp, tn, tt, tc1, tA3, tB3, tA4, tB4 = _t(R, p, nr, t, c1, A3, B3,
                                                  A4, B4)
-    got = (ticp._rotate(tR, tp) + tt[:, None, :], ticp._rotate(tR, tn),
+    got = (*ticp._transform(tR, tt, tp, tn),
            ticp._cross(tp - tc1[:, None], tn),
            tp[..., 0] * tn[..., 0] + tp[..., 1] * tn[..., 1]
            + tp[..., 2] * tn[..., 2],
@@ -182,20 +185,17 @@ def test_elementwise_orders_match_xla():
 
 
 def test_rotation_trig_against_xla():
-    """cos and sin: the port rounds the f64 values to f32, XLA computes
-    its own f32 ones. Measured on 200,000 angles each: equal below 1e-3
-    rad; above that they differ by one ulp on a small share (at most 1e-3
-    of the angles up to 0.01 rad, 1e-2 up to 0.1 rad); never by more."""
+    """cos and sin of the rotation's angles (icp.py:40-58): the port's
+    ``xla_math.sincos`` equals XLA's f32 ones (glibc's cosf/sinf) bit for
+    bit on 200,000 angles at each scale the ICP's updates take."""
     rng = np.random.default_rng(0)
-    for scale, share in ((1e-3, 0.0), (1e-2, 1e-3), (1e-1, 1e-2)):
+    for scale in (1e-3, 1e-2, 1e-1, 1.0):
         x = (rng.uniform(-1, 1, 200_000) * scale).astype(np.float32)
-        want = jax.jit(lambda v: jnp.stack([jnp.cos(v), jnp.sin(v)]))(x)
-        xt = torch.from_numpy(x).double()
-        got = torch.stack([torch.cos(xt), torch.sin(xt)]).float().numpy()
-        ulp = np.abs(got.view(np.int32).astype(np.int64)
-                     - np.asarray(want).view(np.int32).astype(np.int64))
-        assert ulp.max() <= 1 and (ulp > 0).mean() <= share, (
-            scale, (ulp > 0).mean())
+        want = np.asarray(jax.jit(
+            lambda v: jnp.stack([jnp.cos(v), jnp.sin(v)]))(x))
+        got = xla_math.sincos(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -204,13 +204,12 @@ def test_rotation_trig_against_xla():
 
 def _emulated_source() -> str:
     """pairsum.cu with the emulation header, each launch a loop over
-    blocks and threads."""
+    blocks of real threads that meet at __syncthreads."""
     with open(pairsum._SRC) as f:
         s = f.read()
-    launch = ("#define PAIRSUM_LAUNCH(kernel, blocks, stream, ...) do { "
-              "(void)(stream); for (unsigned b_ = 0; b_ < (unsigned)(blocks); "
-              "++b_) for (int t_ = 0; t_ < THREADS; ++t_) { blockIdx.x = b_; "
-              "threadIdx.x = t_; kernel(__VA_ARGS__); } } while (0)")
+    launch = ("#define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...) "
+              "do { (void)(stream); emulate_block_launch((blocks), (threads), "
+              "[&] { kernel(__VA_ARGS__); }); } while (0)")
     a = "#include <cuda_runtime.h>"
     assert s.count(a) == 1 and "#ifndef PAIRSUM_LAUNCH" in s
     return s.replace(a, f'#include "{HEADER}"\n{launch}')
@@ -224,7 +223,8 @@ def emu(tmp_path_factory):
     src, out = d / "pairsum_emu.cpp", d / "libpairsum_emu.so"
     src.write_text(_emulated_source())
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                        "-fPIC", "-shared", "-pthread", "-o", str(out),
+                        "-fPIC", "-shared", "-pthread", "-I",
+                        os.path.dirname(pairsum._SRC), "-o", str(out),
                         str(src)], capture_output=True, text=True)
     assert r.returncode == 0, r.stderr[-3000:]
     return pairsum.bind(ctypes.CDLL(str(out)))
@@ -235,17 +235,20 @@ def _run_emu(lib, x, spec, n0, n_total, state):
     out = pairsum.new_state(x.shape[0], spec_t.shape[0], "cpu")
     if state is not None:
         out.copy_(state)
-    depth = pairsum.push_depths(n_total, "cpu")
+    shape = pairsum._shape(x.shape[2], spec_t.shape[0])
+    tiles = pairsum._tiles_cached(n_total, n0, x.shape[1], shape, "cpu")
+    folds = pairsum._folds_cached(n_total, "cpu")
     rc = lib.pairsum_run(x.data_ptr(), x.shape[0], x.shape[1], x.shape[2],
-                         spec_t.data_ptr(), spec_t.shape[0],
-                         depth.data_ptr(), n0, n_total, out.data_ptr(), None)
+                         spec_t.data_ptr(), spec_t.shape[0], tiles.data_ptr(),
+                         folds.data_ptr(), n0, n_total, out.data_ptr(),
+                         shape == "small", None)
     assert rc == 0
     return out
 
 
-@pytest.mark.parametrize("n,parts", [(1024, 1), (4096, 1), (4096, 4),
-                                     (2048, 1), (1024, 32), (16384, 1),
-                                     (32768, 8)])
+@pytest.mark.parametrize("n,parts", [(128, 1), (256, 2), (1024, 1),
+                                     (4096, 1), (4096, 4), (2048, 1),
+                                     (1024, 32), (16384, 1), (32768, 8)])
 def test_emulated_kernel_matches_plain(emu, n, parts):
     """Every kind, whole axis and chained runs: the kernel's states equal
     the plain version's bit for bit; from 16384 points the cascades of C's
@@ -265,23 +268,92 @@ def test_emulated_kernel_matches_plain(emu, n, parts):
         assert torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
 
 
+# a launch of a few sums over few columns takes the kernel's small shape
+SMALL_SPEC = [(WINDOW, 0, ONE), (CHAIN, 0, 1), (LANES_TAIL, 1, 2),
+              (BLOCKED_TAIL, 2, 3)]
+
+
+@pytest.mark.parametrize("n,parts", [(256, 1), (1024, 4), (4096, 1),
+                                     (32768, 8)])
+def test_emulated_small_shape_matches_plain(emu, n, parts):
+    """The kernel's small shape (a few sums over a few columns, as
+    scoring's means): every chained kind and LANES, whole axis and chained
+    runs, bit for bit."""
+    assert pairsum._shape(4, len(SMALL_SPEC)) == "small"
+    rng = np.random.default_rng(n + 7 * parts)
+    x = torch.from_numpy(rng.normal(size=(6, n, 4)).astype(np.float32)
+                         * (rng.random((6, n, 4)) < 0.8))
+    m = n // parts
+    st_p = st_k = None
+    for k in range(parts):
+        xs = x[:, k * m:(k + 1) * m].contiguous()
+        st_p = pairsum.pairsum_ref(xs, SMALL_SPEC, k * m, n, st_p)
+        st_k = _run_emu(emu, xs, SMALL_SPEC, k * m, n, st_k)
+        assert torch.equal(st_k.view(torch.int32), st_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_emulated_kernel_folded_matches_plain(emu, n):
+    """The one-pair kinds of 128 and 256 points (FOLDED, FOLDED_TAIL: the
+    whole axis in one call) beside the other kinds, in one launch."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(3, n, 5)).astype(np.float32)
+                         * (rng.random((3, n, 5)) < 0.8))
+    spec = [(FOLDED, 0, 1), (FOLDED_TAIL, 2, 3), (FOLDED_TAIL, 4, ONE),
+            (WINDOW, 0, ONE), (BLOCKED, 1, 4), (CHAIN, 3, 2)]
+    want = pairsum.pairsum_ref(x, spec)
+    got = _run_emu(emu, x, spec, 0, n, None)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_emulated_fma_matches_plain(emu):
-    """fma_kernel against gnn._fma32 (the CPU's ``pairsum.fma``) on
-    products that cancel, subnormal and huge entries."""
-    rng = np.random.default_rng(11)
-    n = 20000
-    a, b = (rng.normal(size=n).astype(np.float32) for _ in "ab")
-    c = (-(a.astype(np.float64) * b) * (1 + rng.normal(size=n) * 1e-7)
-         ).astype(np.float32)
-    a[:50] = np.float32(1e-20)
-    b[50:100] = np.float32(3e30)
-    c[100:150] = np.float32(1e-40)
-    ta, tb, tc = _t(a, b, c)
-    want = pairsum.fma(ta, tb, tc)
-    out = torch.empty_like(ta)
-    assert emu.fma_run(ta.data_ptr(), tb.data_ptr(), tc.data_ptr(),
-                       out.data_ptr(), n, None) == 0
-    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    """fma_chain_kernel against the plain chains (gnn._fma32), bit for
+    bit, on broadcast and strided operands (none of them copied)."""
+    for chains, shape, outs in chain_cases(np.random.default_rng(11)):
+        shape = torch.Size(shape)
+        want = [c.plain(shape) for c in chains]
+        got = outs or [torch.empty(shape) for _ in chains]
+        desc = pairsum.fma_desc(chains, shape, got)
+        assert emu.fma_run(desc.ctypes.data, None) == 0
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_emulated_xla_math_matches_plain(emu):
+    """xla_math_kernel's three operations (exp, arccos, and cos with sin
+    in one pass) against the plain versions, bit for bit (a NaN equal to
+    any NaN)."""
+    from rescan_tpu_torch.ops import xla_math
+    x = xla_math_args(np.random.default_rng(12))
+    n = len(x)
+    plain = {xla_math.EXP: xla_math.exp_ref(x),
+             xla_math.ACOS: xla_math.acos_ref(x),
+             xla_math.SINCOS: torch.cat([xla_math.cos_ref(x),
+                                         xla_math.sin_ref(x)])}
+    for op, want in plain.items():
+        out = torch.empty(want.shape)
+        assert emu.xla_math_run(op, x.data_ptr(), out.data_ptr(), n,
+                                None) == 0
+        assert lu6.same_bits(out, want), op
+
+
+def test_emulated_score_terms_match_plain(emu):
+    """score_terms_kernel against ops/score.py's per_point_ref, bit for
+    bit (a NaN equal to any NaN), by float4 and, at an unaligned start,
+    one point at a time."""
+    from rescan_tpu_torch.ops import score
+    d2, dot, found, mask = score_inputs(np.random.default_rng(13))
+    want = score.per_point_ref(d2, dot, found, mask, 0.1)
+    for s0 in (0, 1):
+        a, b, f, m = (t.reshape(-1)[s0:].contiguous() if s0 == 0 else
+                      t.reshape(-1)[s0:] for t in (d2, dot, found, mask))
+        out = torch.empty(a.shape)
+        assert emu.score_terms_run(
+            a.data_ptr(), b.data_ptr(), f.data_ptr(), m.data_ptr(),
+            out.data_ptr(), a.numel(), score._NORMAL_DIV,
+            score._dist_div(0.1), score._ALPHA, score._ONE_MINUS_ALPHA,
+            None) == 0
+        assert lu6.same_bits(out, want.reshape(-1)[s0:])
 
 
 @pytest.mark.parametrize("kind", ["spd", "icp", "general", "singular"])

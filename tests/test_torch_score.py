@@ -82,12 +82,10 @@ def _score_case(seed=0):
 def test_score_multi_matches_jax():
     """Scores against rescan_tpu.ops.score._score_multi on one slab
     (Pallas in interpret mode): the kernel results are bit-identical, and
-    the pose transforms, the per-point fma and the mean's sum (jnp.sum's
-    order, ops/pairsum.py) are formed as XLA forms them; what still
-    differs is XLA's own f32 exp and arccos, an ulp off torch's on some
-    arguments. Measured: 232 of 240 scores bit-identical, the rest one
-    ulp (1.2e-7) away; held to 2e-7, and at least 0.9 of them
-    bit-identical."""
+    the pose transforms, the per-point terms (XLA's own f32 exp and
+    arccos, ops/xla_math.py; the true divisions; the contracted fma) and
+    the mean's sum (jnp.sum's order, ops/pairsum.py) are formed as XLA
+    forms them: all 240 scores bit for bit."""
     js, slab, objs, hyps, owner = _score_case()
     P = np.stack([o[0] for o in objs])
     N = np.stack([o[1] for o in objs])
@@ -99,8 +97,7 @@ def test_score_multi_matches_jax():
         slab, torch.from_numpy(P), torch.from_numpy(N), torch.from_numpy(M),
         torch.from_numpy(hyps), torch.from_numpy(owner), 0.1, 0.1).numpy()
     assert (ref > 0.3).sum() > 50
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-7)
-    assert (got == ref).mean() >= 0.9
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_score_stream_matches_single_launch(monkeypatch):

@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from rescan_tpu_torch import resolve_device, sequences
-    from rescan_tpu_torch.ops import gnn
+    from rescan_tpu_torch.ops import gnn, pairsum
     from rescan_tpu_torch.pipeline import (driver, pose_proposal,
                                            segment_transfer)
 
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
         "first_run_s": first, "rescan_wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall,
-        "kernel_launches": dict(gnn.LAUNCHES),
+        "kernel_launches": dict(gnn.LAUNCHES, **pairsum.LAUNCHES),
         "device_time_s_by_op": {e.key: e.self_device_time_total / 1e6
                                 for e in events[:12]},
         "device_calls_by_op": {e.key: e.count for e in events[:12]},
