@@ -8,12 +8,14 @@ result lines:
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
 2. build   — the native host library and the two CUDA libraries (gated NN;
-             per-pair sums, fma chains, the 6x6 solve, XLA's f32 math and
-             scoring's per-point terms), from this checkout's sources,
-             the three
+             per-pair sums, fma chains, the 6x6 solve, XLA's f32 math,
+             scoring's per-point terms and the ICP step's tail), from this
+             checkout's sources, the three
              compilers started together; ptxas's report and, per gated-NN
              instantiation, its residency (CTAs per SM by the occupancy
-             calculator, registers, shared and local bytes);
+             calculator, registers, shared and local bytes); fails unless
+             ptxas gives icp_tail_kernel and lu6_kernel a 0-byte stack
+             frame and no spills (every value in registers);
 3. kernels — K1 (gated_min) and K2 (nearest_gated) against their plain
              PyTorch versions on the card: random fixtures (duplicated
              points, both tile sizes, both gate kinds, a query count that
@@ -53,9 +55,14 @@ result lines:
              K2 launches of that run are recorded and then held to the
              plain version and measured as the bench launches of phase 3
              are, and so is the first launch of every shape of that run
-             of pairsum, the fma chains, lu6, the XLA math and the score
-             terms (each measured at its largest, beside torch.addcmul or
-             torch.linalg.solve where one call computes it); the rescan's
+             of pairsum, the fma chains, the score terms and the ICP tail
+             (the tail: of every pair count, before and after the
+             convergence test starts), each measured at its largest
+             (beside torch.addcmul, a byte-rate yardstick; the tail beside
+             the launch floor, an empty kernel, and torch.linalg.solve_ex
+             of its systems); the standalone lu6 and XLA-math kernels,
+             whose device functions the tail runs, on the tail launches'
+             systems and angles, held and measured alike; the rescan's
              distance from the slab run, the fma-family launches, and the
              augmentation ICP's placements of 256 points or fewer;
 6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
@@ -101,6 +108,7 @@ import functools
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -117,17 +125,27 @@ import torch  # noqa: E402
 KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
 PAIRSUM_SOURCE = "rescan_tpu_torch/ops/csrc/pairsum.cu"
-PORT_KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms")
+PORT_KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms",
+                "icp_tail")
+# the standalone 6x6 solve and XLA-math kernels: the main path runs their
+# device functions inside icp_tail_kernel, and launches them on their own
+# nowhere
+INSIDE_TAIL = ("lu6", "xla_math")
 SOURCES = dict.fromkeys(PORT_KERNELS, PAIRSUM_SOURCE)
 # no Pallas kernel: XLA's compiled arithmetic of the ICP step and of
 # scoring: the step's sums (from the first), its fused products (from the
 # first), its 6x6 solve, the rotation's cos and sin (XLA's f32 functions),
-# scoring's per-point terms
+# scoring's per-point terms, the step's tail after its sums (from the
+# trace)
 REPLACES_OF = {"pairsum": "rescan_tpu/ops/icp.py:132",
                "fma": "rescan_tpu/ops/icp.py:101",
                "lu6": "rescan_tpu/ops/icp.py:162",
                "xla_math": "rescan_tpu/ops/icp.py:43",
-               "score_terms": "rescan_tpu/ops/score.py:160"}
+               "score_terms": "rescan_tpu/ops/score.py:160",
+               "icp_tail": "rescan_tpu/ops/icp.py:160"}
+# the kernels whose ptxas report must show no stack frame and no spills:
+# every value in registers
+REGISTER_RESIDENT = ("icp_tail_kernel", "lu6_kernel")
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
 REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
 REF3_SLAB_NPZ = os.path.join(HERE, "tests", "data",
@@ -145,6 +163,7 @@ TREE_SUM_ICP_SECONDS = {"icp_refine": 0.2122, "refine_to_scene": 0.157,
 # the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 # FP32 work of one pair within r: d2 (3 subtractions, a multiply, two
 # FMAs = 8 flops) and the normal dot (a multiply, two FMAs = 5 flops)
 FLOP_PER_PAIR = 13
@@ -277,6 +296,14 @@ def phase_build() -> None:
     for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", "ptxas " + line.strip())
+    for kernel in REGISTER_RESIDENT:
+        use = ptxas_usage(pairsum.BUILD_LOG, kernel)
+        say("build", f"ptxas {kernel}: {use['registers']} registers, "
+            f"{use['stack']} bytes stack frame, {use['spill_stores']} bytes "
+            f"spill stores, {use['spill_loads']} bytes spill loads")
+        if use["stack"] or use["spill_stores"] or use["spill_loads"]:
+            raise SystemExit(f"[build] FAIL {kernel}: not register-resident "
+                             f"({use})")
     # what would cap the CTAs per SM, each alone, on an H100: 65,536
     # registers (allocated per warp in units of 256), 228 KiB of shared
     # memory (1 KiB of it reserved per CTA), 32 CTA slots
@@ -291,6 +318,30 @@ def phase_build() -> None:
                 f"{i['registers']} registers, {i['shared_bytes']} B shared, "
                 f"{i['local_bytes']} B local; alone, registers would allow "
                 f"{by_regs}, shared memory {by_smem}, CTA slots 32")
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """A kernel's registers, stack frame and spills (bytes) from ptxas's
+    -v report; fails where the report does not name it."""
+    lines = log.splitlines()
+    use = {}
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", lines[i + 1])
+            if m:
+                use.update(zip(("stack", "spill_stores", "spill_loads"),
+                               map(int, m.groups())))
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    use["registers"] = int(m.group(1))
+                    break
+    if len(use) != 4:
+        raise SystemExit(f"[build] FAIL: ptxas's report does not give "
+                         f"{kernel}'s registers, stack and spills")
+    return use
 
 
 def _compare(name, kernel_out, plain_out):
@@ -799,7 +850,8 @@ def _counted(phase: str, what: str, fn):
     out = fn()
     torch.cuda.synchronize()
     launches, plain = _counts()
-    if min(launches.values()) == 0 or any(plain.values()):
+    if min(v for k, v in launches.items() if k not in INSIDE_TAIL) == 0 \
+            or any(plain.values()):
         raise SystemExit(f"[{phase}] FAIL {what}: kernel launches "
                          f"{launches}, plain calls {plain}")
     return out, launches, plain
@@ -847,17 +899,18 @@ MAX_RECORDED = 64
 
 
 def _record_path_calls():
-    """Wrap pairsum.pairsum, pairsum.fma_chains, lu6.solve,
-    xla_math.sincos/exp/acos and score.per_point so that the first call
-    of every distinct shape on the card keeps a copy of its inputs (the
+    """Wrap pairsum.pairsum, pairsum.fma_chains, score.per_point and the
+    ICP step's tail (icp._icp_tail) so that the first call of every
+    distinct shape on the card keeps a copy of its inputs (the tail: of
+    every pair count, before and after the convergence test starts; the
     fma chains, whose operands are strided views, are held to their plain
     chains right after the call instead, and keep their operands for the
     timing); every call passes on unchanged. Returns (calls, undo)."""
-    from rescan_tpu_torch.ops import lu6, pairsum, score, xla_math
-    calls = {k: {} for k in PORT_KERNELS}
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.ops import icp, pairsum, score
+    calls = {k: {} for k in PORT_KERNELS if k not in INSIDE_TAIL}
     real = {"pairsum": pairsum.pairsum, "fma": pairsum.fma_chains,
-            "lu6": lu6.solve, "sincos": xla_math.sincos, "exp": xla_math.exp,
-            "acos": xla_math.acos, "score_terms": score.per_point}
+            "score_terms": score.per_point, "icp_tail": icp._icp_tail}
 
     def keep(name, key, make):
         if key not in calls[name] and len(calls[name]) < MAX_RECORDED:
@@ -882,36 +935,26 @@ def _record_path_calls():
             calls["fma"][key] = (chains, torch.Size(shape), e)
         return got
 
-    def rec_lu6(c, b):
-        if c.is_cuda:
-            keep("lu6", tuple(c.shape), lambda: (c.clone(), b.clone()))
-        return real["lu6"](c, b)
-
-    def rec_math(op):
-        def call(x):
-            if x.is_cuda:
-                keep("xla_math", (op, tuple(x.shape)), lambda: (op, x.clone()))
-            return real[op](x)
-        return call
-
     def rec_terms(d2, dot, found, mask, sigma):
         if d2.is_cuda:
             keep("score_terms", tuple(d2.shape), lambda: (
                 d2.clone(), dot.clone(), found.clone(), mask.clone(), sigma))
         return real["score_terms"](d2, dot, found, mask, sigma)
 
-    pairsum.pairsum, pairsum.fma_chains, lu6.solve = (rec_pairsum, rec_fma,
-                                                      rec_lu6)
-    xla_math.sincos, xla_math.exp, xla_math.acos = (
-        rec_math("sincos"), rec_math("exp"), rec_math("acos"))
-    score.per_point = rec_terms
+    def rec_tail(*args):
+        if args[0].is_cuda:
+            keep("icp_tail", (args[0].shape[0],
+                              args[-1] > config.ICP_CONVERGE_MIN_ITER),
+                 lambda: tuple(a.clone() for a in args[:-1]) + args[-1:])
+        return real["icp_tail"](*args)
+
+    pairsum.pairsum, pairsum.fma_chains = rec_pairsum, rec_fma
+    score.per_point, icp._icp_tail = rec_terms, rec_tail
 
     def undo():
-        pairsum.pairsum, pairsum.fma_chains, lu6.solve = (
-            real["pairsum"], real["fma"], real["lu6"])
-        xla_math.sincos, xla_math.exp, xla_math.acos = (
-            real["sincos"], real["exp"], real["acos"])
+        pairsum.pairsum, pairsum.fma_chains = real["pairsum"], real["fma"]
         score.per_point = real["score_terms"]
+        icp._icp_tail = real["icp_tail"]
     return calls, undo
 
 
@@ -921,14 +964,16 @@ def _finite_err(got, want) -> float:
 
 
 def _path_launches(calls) -> dict:
-    """Phase 5's launches of the library's five kernels (the first of
-    every shape), each held to its plain version bit for bit (the fma
-    chains right after their call, the others after the run); the largest
-    launch of each measured against its plain version, a PyTorch call of
-    the same function where there is one and the bound (pairsum: its
-    three largest shapes, the kernel alone). Returns {name: row} for the
+    """Phase 5's launches of the library's kernels on the path (pairsum,
+    the fma chains, the ICP tail, the score terms; the first of every
+    shape), each held to its plain version bit for bit (the fma chains
+    right after their call, the others after the run); the largest
+    launch of each measured against its plain version, a PyTorch call
+    where there is one and the bound (pairsum: its three largest shapes,
+    the kernel alone); the standalone lu6 and XLA math on the tail's
+    systems and angles (``_tail_rows``). Returns {name: row} for the
     kernels line (pairsum: its max_abs_err only)."""
-    from rescan_tpu_torch.ops import lu6, pairsum, score, xla_math
+    from rescan_tpu_torch.ops import lu6, pairsum, score
     if not all(calls.values()):
         raise SystemExit(f"[slice] FAIL: launches recorded "
                          f"{ {k: len(v) for k, v in calls.items()} }")
@@ -980,50 +1025,7 @@ def _path_launches(calls) -> dict:
         flops, "fma", phase="slice", max_abs_err=e_fma,
         entries=n)
 
-    e_lu = 0.0
-    for cm, rhs in calls["lu6"].values():
-        got, want = lu6.solve(cm, rhs), lu6.solve_ref(cm, rhs)
-        if not lu6.same_bits(got, want):
-            raise SystemExit(f"[slice] FAIL lu6 path launch "
-                             f"{tuple(cm.shape)}: differs from the plain "
-                             f"version")
-        e_lu = max(e_lu, _finite_err(got, want))
-    cm, rhs = max(calls["lu6"].values(), key=lambda t: t[0].shape[0])
-    m = cm.shape[0]
-    # each system's 36 + 6 entries read and 6 written; its flops: the
-    # factorisation's dots and scalings, then the two triangular solves
-    flops = sum(2 * i for j in range(6) for i in range(1, j)) + sum(
-        2 * j * (6 - j) + (6 - j) for j in range(6)) + 2 * 36
-    rows["lu6"] = _timed_row(
-        f"lu6, the largest path launch ({m} systems; "
-        f"{len(calls['lu6'])} launch shapes held to ops/lu6.py solve_ref, "
-        f"0 mismatches)", lambda: lu6.solve(cm, rhs),
-        lambda: lu6.solve_ref(cm, rhs),
-        lambda: torch.linalg.solve_ex(cm, rhs)[0],
-        m * 48 * 4, m * flops, "lu6", phase="slice",
-        max_abs_err=e_lu, systems=m)
-
-    plain = {"sincos": lambda v: torch.stack([xla_math.cos_ref(v),
-                                              xla_math.sin_ref(v)]),
-             "exp": xla_math.exp_ref, "acos": xla_math.acos_ref}
-    kern = {"sincos": xla_math.sincos, "exp": xla_math.exp,
-            "acos": xla_math.acos}
-    e_m = 0.0
-    for op, x in calls["xla_math"].values():
-        got, want = kern[op](x), plain[op](x)
-        if not lu6.same_bits(got, want):
-            raise SystemExit(f"[slice] FAIL xla_math {op} path launch "
-                             f"{tuple(x.shape)}: differs from the plain "
-                             f"version")
-        e_m = max(e_m, _finite_err(got, want))
-    op, x = max(calls["xla_math"].values(), key=lambda t: t[1].numel())
-    rows["xla_math"] = _timed_row(
-        f"xla_math {op}, the largest path launch ({tuple(x.shape)}; "
-        f"{len(calls['xla_math'])} launch shapes held to the plain "
-        f"versions, 0 mismatches)", lambda: kern[op](x),
-        lambda: plain[op](x), None, x.numel() * (12 if op == "sincos" else 8),
-        x.numel() * 40, "xla_math", phase="slice", max_abs_err=e_m,
-        entries=x.numel())
+    rows.update(_tail_rows(calls["icp_tail"]))
 
     e_s = 0.0
     for args in calls["score_terms"].values():
@@ -1045,6 +1047,101 @@ def _path_launches(calls) -> dict:
         lambda: torch.addcmul(a, args[0], args[1]), m * 14, n_found * 60,
         "score_terms", phase="slice", max_abs_err=e_s, entries=m)
     print(json.dumps({"path_launch": rows}), flush=True)
+    return rows
+
+
+# one ICP tail's work per pair. Bytes: round 4's 43 totals, the weight
+# total, the int64 count, c1, T, err and the active flag read; T, err and
+# the flag written. FP32 operations: the trace and damping (5 + 2 + 72),
+# the solve (LU6_FLOPS), the error (2), the two 3x3 products and R c1 (2 x
+# 45 + 15), the translation (6), upd @ T (112), the test (3); FP64: XLA's
+# cos and sin of three angles (6 polynomials of ~10 operations and their
+# reductions, ~20 operations each)
+TAIL_BYTES = 43 * 4 + 4 + 8 + 12 + 64 + 4 + 1 + 64 + 4 + 1
+# each 6x6 system's FP32 operations: the factorisation's dots and
+# scalings, then the two triangular solves
+LU6_FLOPS = sum(2 * i for j in range(6) for i in range(1, j)) + sum(
+    2 * j * (6 - j) + (6 - j) for j in range(6)) + 2 * 36
+TAIL_FLOPS = 79 + LU6_FLOPS + 2 + 105 + 6 + 112 + 3
+TAIL_F64_FLOPS = 6 * 20
+
+
+def _tail_rows(calls) -> dict:
+    """Phase 5's ICP tail launches (the first of every pair count, before
+    and after the convergence test starts), each held to
+    ``icp._icp_tail_ref`` bit for bit, the largest measured against the
+    plain version, the launch floor (an empty kernel's queued_ms in this
+    call) and the bound; then the standalone solve and XLA math kernels,
+    whose device functions the tail runs, on the same launches' systems
+    and angles (formed by the plain version's steps), each held to its
+    plain version and measured at the largest. Returns {name: row}."""
+    from rescan_tpu_torch.ops import icp, lu6, pairsum, xla_math
+    err = 0.0
+    systems = []
+    for args in calls.values():
+        got, want = icp._icp_tail(*args), icp._icp_tail_ref(*args)
+        if not icp.same_tail(got, want):
+            raise SystemExit(f"[slice] FAIL icp tail path launch "
+                             f"{tuple(args[0].shape)} it={args[-1]}: "
+                             f"differs from _icp_tail_ref")
+        err = max(err, _finite_err(got[0], want[0]),
+                  _finite_err(got[1], want[1]))
+        systems.append(icp._damped_system(args[0]))
+    args = max(calls.values(), key=lambda a: a[0].shape[0])
+    m = args[0].shape[0]
+    dev = args[0].device
+    floor, _ = queued_ms(lambda: pairsum.run("empty", dev))
+    cm, rhs = icp._damped_system(args[0])
+    solve_lib, _ = queued_ms(lambda: torch.linalg.solve_ex(cm, rhs)[0])
+    say("slice", f"launch floor (an empty kernel, one block): {floor:.4f} "
+        f"ms; torch.linalg.solve_ex of the largest tail launch's {m} "
+        f"systems (the solve alone) {solve_lib:.4f} ms")
+    rows = {"icp_tail": _timed_row(
+        f"icp tail, the largest path launch ({m} pairs; {len(calls)} "
+        f"launch shapes held to _icp_tail_ref, 0 mismatches)",
+        lambda: icp._icp_tail(*args), lambda: icp._icp_tail_ref(*args),
+        None, m * TAIL_BYTES,
+        m * (TAIL_FLOPS + TAIL_F64_FLOPS * FP32_FLOP_PER_S / FP64_FLOP_PER_S),
+        "icp_tail", phase="slice", max_abs_err=err, pairs=m,
+        launch_floor_ms=floor, solve_library_ms=solve_lib)}
+
+    e_lu = 0.0
+    angles = []
+    for c, b in systems:
+        got, want = lu6.solve(c, b), lu6.solve_ref(c, b)
+        if not lu6.same_bits(got, want):
+            raise SystemExit(f"[slice] FAIL lu6 on the tail's systems "
+                             f"{tuple(c.shape)}: differs from solve_ref")
+        e_lu = max(e_lu, _finite_err(got, want))
+        angles.append(torch.where(torch.isfinite(want), want, 0.0)[:, :3])
+    rows["lu6"] = _timed_row(
+        f"lu6 standalone, the largest tail launch's systems ({m}; "
+        f"{len(systems)} launches' systems held to ops/lu6.py solve_ref, 0 "
+        f"mismatches)", lambda: lu6.solve(cm, rhs),
+        lambda: lu6.solve_ref(cm, rhs),
+        lambda: torch.linalg.solve_ex(cm, rhs)[0],
+        m * 48 * 4, m * LU6_FLOPS, "lu6", phase="slice",
+        max_abs_err=e_lu, systems=m, launch_floor_ms=floor)
+
+    def plain_sincos(v):
+        return torch.stack([xla_math.cos_ref(v), xla_math.sin_ref(v)])
+    e_m = 0.0
+    for x in angles:
+        got, want = xla_math.sincos(x), plain_sincos(x)
+        if not lu6.same_bits(got, want):
+            raise SystemExit(f"[slice] FAIL xla_math sincos on the tail's "
+                             f"angles {tuple(x.shape)}: differs from the "
+                             f"plain version")
+        e_m = max(e_m, _finite_err(got, want))
+    x = max(angles, key=lambda a: a.numel())
+    rows["xla_math"] = _timed_row(
+        f"xla_math sincos standalone, the largest tail launch's angles "
+        f"({tuple(x.shape)}; {len(angles)} launches' angles held to the "
+        f"plain versions, 0 mismatches)", lambda: xla_math.sincos(x),
+        lambda: plain_sincos(x), None, x.numel() * 12,
+        x.numel() * 40 * FP32_FLOP_PER_S / FP64_FLOP_PER_S, "xla_math",
+        phase="slice", max_abs_err=e_m, entries=x.numel(),
+        launch_floor_ms=floor)
     return rows
 
 
@@ -1133,7 +1230,8 @@ def phase_slice(cuda, root: str, class_file: str):
         f"{counts.tolist()}; {len(out['class_ids'])} level-1 points "
         f"labelled; the fma family (fma chains, XLA math, score terms) "
         f"{launches['fma'] + launches['xla_math'] + launches['score_terms']}"
-        f" launches")
+        f" launches; ICP tails {launches['icp_tail']} (standalone lu6 "
+        f"{launches['lu6']}, XLA math {launches['xla_math']})")
     _say_aug("slice", "bench rescan", aug())
     # held to the JAX package's run on the slab at every limit, and to its
     # run on the CPU's HashGrid with the lower-ranked proposals at the
@@ -1306,7 +1404,7 @@ def _mesh_dpsp(bench_root: str, slots) -> None:
     t_sh = time.perf_counter() - t0
     launches, plain = _counts()
     if (launches["nearest_gated"] == 0 or launches["pairsum"] == 0
-            or any(plain.values())):
+            or launches["icp_tail"] == 0 or any(plain.values())):
         raise SystemExit(f"[mesh] FAIL (c): kernel launches {launches}, "
                          f"plain calls {plain}")
     t0 = time.perf_counter()
@@ -1671,18 +1769,35 @@ def main() -> int:
     for k in ("fma", "score_terms"):
         err[k] = max(err[k], kern["rows"][k]["max_abs_err"])
     err["pairsum"] = max(err["pairsum"], path_rows["pairsum"]["max_abs_err"])
-    kernels = [{"name": name, "route": "cuda",
-                "source": SOURCES.get(name, KERNEL_SOURCE),
-                "replaces": REPLACES_OF.get(name, REPLACES),
-                "launches": launches[name], "max_abs_err": err[name],
-                "ms": rows[name]["ms"], "timing": rows[name]["timing"],
-                "plain_ms": rows[name]["plain_ms"],
-                "bound_ms": rows[name]["bound_ms"],
-                "bound_by": rows[name]["bound_by"],
-                # no PyTorch call gates a nearest neighbour by normal, nor
-                # computes a sine and cosine at once; the sums' is the Gram
-                # product of their columns
-                "library_ms": rows[name].get("library_ms")}
+    def entry(name):
+        row = rows[name]
+        out = {"name": name, "route": "cuda",
+               "source": SOURCES.get(name, KERNEL_SOURCE),
+               "replaces": REPLACES_OF.get(name, REPLACES),
+               "launches": launches[name], "max_abs_err": err[name],
+               "ms": row["ms"], "timing": row["timing"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"],
+               # no PyTorch call gates a nearest neighbour by normal, nor
+               # computes a sine and cosine at once, nor the ICP's tail;
+               # the sums' is the Gram product of their columns
+               "library_ms": row.get("library_ms")}
+        if name in ("fma", "score_terms"):
+            # torch.addcmul moves the same bytes but computes another
+            # function: a byte-rate yardstick, not a library time
+            out.update(library_ms=None,
+                       addcmul_yardstick_ms=row["library_ms"])
+        if "launch_floor_ms" in row:
+            out["launch_floor_ms"] = row["launch_floor_ms"]
+        if name == "icp_tail":
+            out["solve_library_ms"] = row["solve_library_ms"]
+        if name in INSIDE_TAIL:
+            # on the path inside icp_tail_kernel: each of its launches
+            # runs this kernel's device function; timed standalone
+            out.update(launches=launches["icp_tail"], runs_inside="icp_tail",
+                       standalone_launches=launches[name])
+        return out
+    kernels = [entry(name)
                for name in ("gated_min", "nearest_gated") + PORT_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -33,16 +33,21 @@ from .pairsum import BLOCKED, BLOCKED_TAIL, CHAIN, ONE, WINDOW
 
 # XLA folds ``1e-6 * tr / 6.0`` (icp.py:161) into one constant
 _DAMP = np.float32(1.66666666e-07)
+# the damping's addend (icp.py:161), has_corrs's least weight total
+# (:143), wsafe's floor (:144)
+_DAMP_ADD = 1e-20
+_MIN_WSUM = 1e-7
+_WSUM_FLOOR = 1e-30
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for batches of small matrices as XLA's dot computes it:
     per entry an FMA chain over the inner index from the first product
-    (one launch; the operands read through broadcast strides)."""
+    (the plain chains of ``pairsum.Chain``)."""
     terms = [(a[..., :, k, None], b[..., None, k, :])
              for k in range(a.shape[-1])]
     shape = torch.broadcast_shapes(terms[0][0].shape, terms[0][1].shape)
-    return pairsum.fma_chains([pairsum.Chain(terms)], shape)[0]
+    return pairsum.Chain(terms).plain(shape)
 
 
 def _transform(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor,
@@ -71,9 +76,11 @@ def _cross(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def _rotation_xyz(ax, ay, az):
     """R = Rx(ax) @ Ry(ay) @ Rz(az) (icp.h:288-290), with XLA's f32 cos
-    and sin (ops/xla_math.py, one launch for the six)."""
+    and sin (ops/xla_math.py's plain versions)."""
+    angles = torch.stack([ax, ay, az], -1)
     (cx, cy, cz), (sx, sy, sz) = (
-        v.unbind(-1) for v in xla_math.sincos(torch.stack([ax, ay, az], -1)))
+        v.unbind(-1) for v in (xla_math.cos_ref(angles),
+                               xla_math.sin_ref(angles)))
     one = torch.ones_like(ax)
     zero = torch.zeros_like(ax)
     rx = torch.stack([torch.stack([one, zero, zero], -1),
@@ -181,8 +188,7 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
 
     s3 = sums(torch.cat([w[..., None], q, p2], -1), spec3)
     wsum = s3[:, 0]
-    has_corrs = (cnt_raw > 0) & (wsum > 1e-7)
-    wsafe = wsum.clamp_min(1e-30)
+    wsafe = wsum.clamp_min(_WSUM_FLOOR)
     c1 = s3[:, 1:4] / wsafe[:, None]
     c2 = s3[:, 4:7] / wsafe[:, None]
     p = q - c1[:, None, :]
@@ -196,15 +202,84 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     wj6 = w[..., None] * j6
     s4 = sums(torch.cat([wj6, j6, ddn[..., None], w[..., None],
                          (ddn * ddn)[..., None]], -1), spec4)
+    return _icp_tail(s4, wsum, cnt_raw, c1, T, err, active, it)
+
+
+def _icp_tail(s4, wsum, cnt_raw, c1, T, err, active, it: int):
+    """The step after its last round of sums, per pair: (T, err, active)
+    from round 4's totals ``s4`` (B, 43: C, b negated, e2), round 3's
+    weight totals ``wsum`` (B,), round 1's counts ``cnt_raw`` (B,
+    int64), the centroid ``c1`` (B, 3) and the state. On CUDA tensors
+    one ``icp_tail_kernel`` launch (csrc/pairsum.cu, a warp per pair);
+    on CPU tensors ``_icp_tail_ref``, which it equals bit for bit."""
+    if not s4.is_cuda:
+        pairsum._count(pairsum.PLAIN_CALLS, "icp_tail")
+        return _icp_tail_ref(s4, wsum, cnt_raw, c1, T, err, active, it)
+    B = s4.shape[0]
+    want = ((s4, (B, 43), torch.float32), (wsum, (B,), torch.float32),
+            (cnt_raw, (B,), torch.int64), (c1, (B, 3), torch.float32),
+            (T, (B, 4, 4), torch.float32), (err, (B,), torch.float32),
+            (active, (B,), torch.bool))
+    if s4.stride(1) != 1 or any(
+            tuple(v.shape) != shape or v.dtype != dtype or
+            v.device != s4.device for v, shape, dtype in want):
+        raise ValueError(
+            "icp_tail: want s4 (B, 43) with unit column stride, wsum, "
+            "cnt_raw (int64), c1 (B, 3), T (B, 4, 4), err, active (bool) "
+            "on one device, got " + ", ".join(
+                f"{tuple(v.shape)} {v.dtype} {v.device}" for v, _, _ in want))
+    cnt_raw, c1, T, err, active = (v.contiguous() for v in (
+        cnt_raw, c1, T, err, active))
+    T_new = torch.empty_like(T)
+    err_new = torch.empty_like(err)
+    active_new = torch.empty_like(active)
+    if B:
+        pairsum.run("icp_tail", s4.device, s4.data_ptr(), s4.stride(0),
+                    wsum.data_ptr(), wsum.stride(0), cnt_raw.data_ptr(),
+                    c1.data_ptr(), T.data_ptr(), err.data_ptr(),
+                    active.data_ptr(), T_new.data_ptr(), err_new.data_ptr(),
+                    active_new.data_ptr(), B,
+                    int(it > config.ICP_CONVERGE_MIN_ITER),
+                    *(float(np.float32(v)) for v in (
+                        _DAMP, _DAMP_ADD, _MIN_WSUM, _WSUM_FLOOR,
+                        config.ICP_CONVERGE_DELTA)))
+    return T_new, err_new, active_new
+
+
+def same_tail(got, want) -> bool:
+    """Whether two ``_icp_tail`` results (T, err, active) are equal bit for
+    bit, a NaN equal to any NaN (the card and the CPU make NaNs of other
+    payloads)."""
+    return (lu6.same_bits(got[0], want[0]) and lu6.same_bits(got[1], want[1])
+            and torch.equal(got[2], want[2]))
+
+
+def _damped_system(s4):
+    """(C + eye * damp, b) of round 4's totals (icp.py:156-161): the
+    trace summed from C[0, 0], the damping added to all 36 entries (0 *
+    damp off the diagonal: +0.0 for a -0.0 entry, NaN everywhere where
+    damp is not finite)."""
+    B = s4.shape[0]
     C = s4[:, :36].reshape(B, 6, 6)
     b = -s4[:, 36:42]
     tr = C[:, 0, 0]
     for k in range(1, 6):
         tr = tr + C[:, k, k]
-    damp = tr * float(_DAMP) + 1e-20
+    damp = tr * float(_DAMP) + _DAMP_ADD
     C = C + torch.eye(6, dtype=C.dtype, device=C.device)[None] \
         * damp[:, None, None]
-    x = lu6.solve(C, b)
+    return C, b
+
+
+def _icp_tail_ref(s4, wsum, cnt_raw, c1, T, err, active, it: int):
+    """The plain PyTorch ``_icp_tail``, in the order XLA computes
+    icp.py:160-182: the trace and damping, the 6x6 solve (ops/lu6.py),
+    the error, the rotation (ops/xla_math.py's cos and sin, the products
+    as XLA's dot chains) and the update."""
+    B = s4.shape[0]
+    has_corrs = (cnt_raw > 0) & (wsum > _MIN_WSUM)
+    wsafe = wsum.clamp_min(_WSUM_FLOOR)
+    x = lu6.solve_ref(*_damped_system(s4))
     x = torch.where(torch.isfinite(x), x, 0.0)
 
     new_err = _sqrt(s4[:, 42] / wsafe)

@@ -26,10 +26,11 @@ tests/test_torch_lu6.py):
   ``x_i *= 1 / U[i, i]`` (the reciprocal rounded first) and the same
   fma updates above it.
 
-``solve`` launches ``lu6_kernel`` (csrc/pairsum.cu, one thread per
-system) on CUDA tensors and takes the plain PyTorch version
-(``solve_ref``: elementwise torch ops and ``gnn._fma32``) on CPU
-tensors; the two give the same bits. Non-finite results stay as IEEE
+``solve`` launches ``lu6_kernel`` (csrc/pairsum.cu, a warp per system,
+lane r holding row r: the device function ``lu6_solve``, which the ICP
+step's tail kernel runs too) on CUDA tensors and takes the plain
+PyTorch version (``solve_ref``: elementwise torch ops and
+``gnn._fma32``) on CPU tensors; the two give the same bits. Non-finite results stay as IEEE
 gives them; the caller zeroes them as icp.py:163 does.
 """
 

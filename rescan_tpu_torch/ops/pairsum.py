@@ -61,9 +61,10 @@ Elementwise orders of the same step, which ops/icp.py forms with
   then ``+ 1e-20``.
 * ``_rotation_xyz`` (:40-58): ``cos``/``sin`` of each angle, then
   ``(Rx @ Ry) @ Rz``, and ``R @ c1`` (:173), ``upd @ T`` (:177), each an
-  FMA chain over the inner index from the first product (``fma_chains``,
-  one launch for each product, both transforms in one). XLA's f32
-  ``cos``/``sin`` are glibc's, which ``ops/xla_math.py`` replays.
+  FMA chain over the inner index from the first product (in the step's
+  tail kernel, ``ops/icp.py`` ``_icp_tail``; both transforms in one
+  ``fma_chains`` launch). XLA's f32 ``cos``/``sin`` are glibc's, which
+  ``ops/xla_math.py`` replays.
 
 The 6x6 solve's order is in ``ops/lu6.py``.
 
@@ -128,8 +129,9 @@ FOLD_MAX = 256
 ONE = -1
 
 # the library's kernels: the sums, the fma chains, ops/lu6.py's solve,
-# ops/xla_math.py's functions and ops/score.py's per-point terms
-KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms")
+# ops/xla_math.py's functions, ops/score.py's per-point terms and the ICP
+# step's tail (ops/icp.py ``_icp_tail``)
+KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms", "icp_tail")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
@@ -601,6 +603,8 @@ def load_library():
             with open(src, "rb") as f:
                 h.update(f.read())
         out = os.path.join(gnn._BUILD_DIR, f"libpairsum-{h.hexdigest()[:12]}.so")
+        # ptxas's -v report, kept beside the library it describes
+        log = f"{out}.ptxas.txt"
         if not os.path.exists(out):
             nvcc = gnn.find_nvcc()
             os.makedirs(gnn._BUILD_DIR, exist_ok=True)
@@ -610,8 +614,12 @@ def load_library():
             if r.returncode != 0:
                 raise RuntimeError(f"pairsum: nvcc failed ({r.returncode}):"
                                    f"\n{r.stderr}")
+            with open(log, "w") as f:
+                f.write(r.stderr)
             os.replace(tmp, out)
-            BUILD_LOG = r.stderr
+        if os.path.exists(log):
+            with open(log) as f:
+                BUILD_LOG = f.read()
         _lib = bind(ctypes.CDLL(out))
         return _lib
 
@@ -627,7 +635,10 @@ def bind(lib):
             ("fma", [vp]),
             ("lu6", [vp, vp, vp, i32]),
             ("xla_math", [i32, vp, vp, i64]),
-            ("score_terms", [vp, vp, vp, vp, vp, i64, f32, f32, f32, f32])):
+            ("score_terms", [vp, vp, vp, vp, vp, i64, f32, f32, f32, f32]),
+            ("icp_tail", [vp, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
+                          i32, i32, f32, f32, f32, f32, f32]),
+            ("empty", [])):
         fn = getattr(lib, f"{name}_run")
         fn.restype = ctypes.c_int
         fn.argtypes = args + [vp]
@@ -636,14 +647,16 @@ def bind(lib):
 
 def run(name: str, dev: torch.device, *args) -> None:
     """Call the library's ``<name>_run`` with ``args`` on ``dev``'s
-    current stream, and count the launch."""
+    current stream, and count the launch (``empty``, the launch floor's
+    kernel, is not counted)."""
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_run")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {rc}")
-    _count(LAUNCHES, name)
+    if name in LAUNCHES:
+        _count(LAUNCHES, name)
 
 
 @functools.lru_cache(maxsize=256)

@@ -31,7 +31,8 @@ f64 through ``_fma64``, both correctly rounded) and ``__device__``
 functions in ``csrc/xla_math.cuh`` with the same steps
 (``__fmaf_rn``, ``__fma_rn``, no ``expf``/``acosf``/``__cosf``), which
 ``csrc/pairsum.cu`` exposes as ``xla_math_kernel`` and uses in its
-scoring pass. ``exp``, ``acos`` and ``sincos`` launch that kernel on CUDA
+scoring pass and the ICP step's tail (``icp_tail_kernel``: the rotation's
+cos and sin). ``exp``, ``acos`` and ``sincos`` launch that kernel on CUDA
 tensors and take the plain version on CPU tensors; the two give the same
 bits.
 """

@@ -4,8 +4,8 @@
 // tests/test_torch_pairsum.py). In emulate_launch a block is one warp: 32
 // std::threads that meet at a barrier for every warp collective; in
 // emulate_block_launch a block is any number of std::threads that meet at
-// a barrier for every __syncthreads (no warp collectives); blocks run one
-// after another. cp.async becomes a plain copy; the f32 and f64
+// a barrier for every __syncthreads (warp collectives only in a block of
+// 32); blocks run one after another. cp.async becomes a plain copy; the f32 and f64
 // intrinsics are the host's IEEE operations (fmaf and fma are correctly
 // rounded fused multiply-adds).
 #pragma once
@@ -109,6 +109,17 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   g_warp->arrive_and_wait();
   return r;
 }
+// one barrier a shuffle: the lanes write one of two buffers by turns, and a
+// buffer is written again only after every lane has passed the next
+// shuffle's barrier, so after all its readers
+static float g_shfl[2][32];
+static thread_local unsigned g_shfl_turn;
+inline float __shfl_sync(unsigned, float v, int src) {
+  float* buf = g_shfl[g_shfl_turn++ & 1];
+  buf[threadIdx.x] = v;
+  g_warp->arrive_and_wait();
+  return buf[src & 31];
+}
 inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
   static unsigned lanes[32];
   lanes[threadIdx.x] = v;
@@ -144,6 +155,8 @@ inline void emulate_block_launch(unsigned grid, unsigned threads,
     blockIdx.x = b;
     std::barrier<> block(threads);
     g_block = &block;
+    // a block of one warp: its warp collectives meet at the block's barrier
+    if (threads == 32) g_warp = &block;
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < threads; ++t)
       ts.emplace_back([&body, t] {

@@ -392,6 +392,83 @@ def lu6_systems(kind: str, seed: int = 0, count: int = 2000):
     return c, b
 
 
+def icp_tail_inputs(rng, b: int, device="cpu"):
+    """The ICP tail's inputs (ops/icp.py ``_icp_tail``) for ``b`` pairs:
+    seeded random states (round 4's C of the ICP's J^T W J kind, general
+    or with a zero row and column, scaled over 4 decades; b, e2, weight
+    totals, counts, centroids, poses, errors, the active mask) and, from
+    12 pairs on, the edge rows first: a singular C; a NaN and an inf on
+    C's diagonal (damp non-finite, so every entry NaN) and an inf off it;
+    -0.0 off the diagonal under a positive and a negative trace; a NaN in
+    b (a NaN solution, zeroed); no correspondences; a weight total at
+    exactly 1e-7 as float32, and one of NaN; an inactive pair; an error
+    within the convergence delta; angles past sin and cos's fast
+    reduction (500, -4e5, 1e20) and in its middle range (90); signed
+    zeros (a diagonal C with -0.0 off it, zero and -0.0 in b and c1, T
+    the identity)."""
+    f32 = np.float32
+    cs = []
+    for _ in range(b):
+        kind = rng.integers(0, 3)
+        if kind == 0:
+            j = rng.normal(size=(200, 6))
+            m = j.T @ (j * rng.random((200, 1)))
+        else:
+            m = rng.normal(size=(6, 6))
+            if kind == 2:
+                k = rng.integers(0, 6)
+                m[k] = 0
+                m[:, k] = 0
+        s = 10 ** rng.uniform(-2, 2, 6)
+        cs.append(m * s[:, None] * s[None, :])
+    C = np.asarray(cs, f32)
+    nb = rng.normal(size=(b, 6)).astype(f32) * f32(0.01)   # -b
+    wsum = rng.uniform(0.5, 100.0, b).astype(f32)
+    e2 = (wsum * rng.uniform(1e-6, 1e-3, b)).astype(f32)
+    cnt = rng.integers(1, 4096, b).astype(np.int64)
+    c1 = rng.normal(size=(b, 3)).astype(f32)
+    T = np.tile(np.eye(4, dtype=f32), (b, 1, 1))
+    T[:, :3] = rng.normal(size=(b, 3, 4)).astype(f32)
+    err = rng.uniform(0.0, 0.1, b).astype(f32)
+    active = rng.random(b) < 0.9
+    if b >= 12:
+        C[0, 2] = 0
+        C[0, :, 2] = 0
+        C[1, 3, 3] = np.nan
+        C[2, 0, 0] = np.inf
+        C[3, 1, 4] = np.inf
+        for r, sign in ((4, 1), (5, -1)):
+            C[r] = sign * np.diag(rng.uniform(1, 2, 6)).astype(f32)
+            C[r, 0, 1:] = -0.0
+            C[r, 3:, 1] = -0.0
+        nb[6, 2] = np.nan
+        cnt[7] = 0
+        wsum[8] = np.float32(1e-7)
+        wsum[9] = np.nan
+        active[10] = False
+        active[11] = True
+        new_err = np.sqrt(e2[11].astype(np.float64) / wsum[11])
+        err[11] = f32(new_err + 4e-6)
+    if b >= 14:
+        # x = C^-1 b with C = 0.01 I (damping aside): angles of these sizes
+        C[12] = C[13] = np.eye(6, dtype=f32) * f32(0.01)
+        nb[12, :3] = -np.array([500.0, -4e5, 1e20], f32) * f32(0.01)
+        nb[13, :3] = -np.array([90.0, -90.0, 0.0], f32) * f32(0.01)
+    if b >= 16:
+        # signed zeros through the solve and the products: a diagonal C
+        # with -0.0 off it, b, c1 and the angles of zero and -0.0, T the
+        # identity (positive and negative trace)
+        for r, sign in ((14, 1), (15, -1)):
+            C[r] = np.where(np.eye(6, dtype=bool), sign * rng.uniform(
+                1, 2, (6, 6)), -0.0).astype(f32)
+            nb[r] = [0.0, -0.0, -0.0, 0.0, -0.0, 0.0]
+            c1[r] = [0.0, -0.0, 0.0]
+            T[r] = np.eye(4, dtype=f32)
+    s4 = np.concatenate([C.reshape(b, 36), nb, e2[:, None]], 1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for v in (s4, wsum, cnt, c1, T, err, active))
+
+
 def chain_cases(rng, device="cpu"):
     """fma_chains' shapes on the step's and scoring's operands: the two
     transforms (R broadcast over the points, t added), the cross product
@@ -575,6 +652,24 @@ def test_fma_and_lu6_kernels_bit_identical_to_plain(cuda):
     assert pairsum.LAUNCHES["lu6"] == 4
 
 
+@pytest.mark.parametrize("it", [5, 6])
+@pytest.mark.parametrize("b", [1, 69, 256])
+def test_icp_tail_kernel_bit_identical_to_plain(cuda, b, it):
+    """icp_tail_kernel (ops/icp.py ``_icp_tail`` on the card, one launch)
+    against ``_icp_tail_ref`` on the CPU, bit for bit (a NaN equal to any
+    NaN), on ``icp_tail_inputs``' states and edge rows, with round 4's
+    totals and the weight totals read through strided views."""
+    from rescan_tpu_torch.ops import icp, pairsum
+    args = icp_tail_inputs(np.random.default_rng(b), b)
+    want = icp._icp_tail_ref(*args, it)
+    s4, wsum, *rest = (a.to(cuda) for a in args)
+    wide = torch.cat([torch.zeros(b, 5, device=cuda), s4, wsum[:, None]], 1)
+    pairsum.reset_counts()
+    got = icp._icp_tail(wide[:, 5:5 + s4.shape[1]], wide[:, -1], *rest, it)
+    assert pairsum.LAUNCHES["icp_tail"] == 1
+    assert icp.same_tail([g.cpu() for g in got], want)
+
+
 def _wavy_surface(rng, n):
     """tests/test_torch_icp.py's surface: points on a wavy sheet with its
     analytic normals."""
@@ -591,11 +686,12 @@ def _wavy_surface(rng, n):
 def test_icp_on_card_matches_cpu(cuda):
     """tests/test_torch_icp.py's two-object, 8-pair batch (an
     ill-conditioned pair among them, a padding pair) through the ICP on
-    the card (K2, pairsum, fma and lu6) and on the CPU (their plain
+    the card (K2, pairsum, fma and the tail) and on the CPU (their plain
     versions): every pose and error bit for bit, the same iteration count
-    and final active set. Every division by a constant divides by a
-    device tensor (ops/icp.py ``div``), and the rotation's cos and sin
-    are XLA's on both (ops/xla_math.py)."""
+    and final active set, and one tail launch per iteration in place of
+    the standalone solve and math kernels. Every division by a constant
+    divides by a device tensor (ops/icp.py ``div``), and the rotation's
+    cos and sin are XLA's on both (ops/xla_math.py)."""
     from rescan_tpu_torch.ops import icp, pairsum
     rng = np.random.default_rng(12345)
     scene_pts, scene_nrm = _wavy_surface(rng, 2500)
@@ -621,9 +717,11 @@ def test_icp_on_card_matches_cpu(cuda):
                                                     val)),
             slab, torch.from_numpy(T0).to(dev), 0.10, np.deg2rad(60.0))
         launched = gnn.LAUNCHES["nearest_gated"] and min(
-            pairsum.LAUNCHES[k] for k in ("pairsum", "fma", "lu6",
-                                          "xla_math"))
+            pairsum.LAUNCHES[k] for k in ("pairsum", "fma", "icp_tail"))
         assert bool(launched) == (dev != "cpu")
+        assert pairsum.LAUNCHES["lu6"] == pairsum.LAUNCHES["xla_math"] == 0
+        assert pairsum.LAUNCHES["icp_tail"] == (n_iter if dev != "cpu"
+                                                else 0)
         out[str(dev)] = (T.cpu().numpy(), err.cpu().numpy(),
                          act.cpu().numpy(), n_iter)
     (tc, ec, ac, nc), (tg, eg, ag, ng) = out.values()

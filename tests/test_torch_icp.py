@@ -110,6 +110,46 @@ def test_icp_step_matches_jax_slab_engine():
                           np.float32(0.05))
 
 
+@pytest.mark.parametrize("k", [0, 6])
+def test_icp_step_with_split_tail_matches_jax_bit_for_bit(k):
+    """One iteration from JAX's state after k iterations (the first, and
+    the first that tests convergence), both sides on the same slab: the
+    step's tail runs as its own function (``_icp_tail``, here its plain
+    version ``_icp_tail_ref``, once per step), and every pose, error and
+    active flag equals the JAX step's bit for bit."""
+    from rescan_tpu_torch.ops import pairsum
+    scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
+        _indexed_case(12345)
+    js, slab = _slab_pair(scene_pts, scene_nrm)
+    J = jnp.asarray
+    jargs = (J(upts), J(unrm), J(umask), J(own), J(val), js)
+    dist = np.float32(0.10)
+    T, err, active = J(T0), J(np.full(len(T0), 1e6, np.float32)), None
+    if k:
+        T, err, active = jicp.icp_align_indexed(*jargs, T, dist, MAX_ANGLE,
+                                                max_iter=k)
+        for _ in range(k):
+            dist = np.maximum(np.float32(dist * np.float32(0.95)),
+                              np.float32(0.05))
+    active = np.array(active) if k else umask[own].any(1) & val
+    assert active.sum() >= 6
+    jT, jerr, jact = (np.asarray(x) for x in jicp.icp_align_indexed(
+        *jargs, T, dist, MAX_ANGLE, max_iter=k + 1, err_init=err,
+        it_init=k))
+    scene_p, scene_n = tsearch.index_arrays(slab)
+    pairsum.reset_counts()
+    tT, terr, tact = ticp._icp_step(
+        torch.from_numpy(upts)[own], torch.from_numpy(unrm)[own],
+        torch.from_numpy(umask)[own] & torch.from_numpy(val)[:, None], slab,
+        scene_p, scene_n, torch.from_numpy(np.array(T)),
+        torch.from_numpy(np.array(err)), dist, torch.from_numpy(active), k,
+        ticp.cos_gate_of(MAX_ANGLE))
+    assert pairsum.PLAIN_CALLS["icp_tail"] == 1
+    np.testing.assert_array_equal(tT.numpy(), jT)
+    np.testing.assert_array_equal(terr.numpy(), jerr)
+    np.testing.assert_array_equal(tact.numpy(), jact)
+
+
 def test_indexed_icp_matches_jax_slab_engine():
     """The whole loop on the two-object, 8-pair batch: every live pair
     within 1e-6 of JAX's pose and 1e-7 of its error, the same final

@@ -18,8 +18,8 @@ from rescan_tpu_torch.ops import icp as ticp, lu6, pairsum, xla_math
 from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
                                           FOLDED, FOLDED_TAIL, LANES,
                                           LANES_TAIL, ONE, WINDOW)
-from test_torch_cuda import (chain_cases, lu6_systems, score_inputs,
-                             xla_math_args)
+from test_torch_cuda import (chain_cases, icp_tail_inputs, lu6_systems,
+                             score_inputs, xla_math_args)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = os.path.join(HERE, "data", "torch_port_emu_cuda.h")
@@ -368,3 +368,45 @@ def test_emulated_lu6_matches_plain(emu, kind):
     assert emu.lu6_run(tc.data_ptr(), tb.data_ptr(), out.data_ptr(),
                        len(out), None) == 0
     assert lu6.same_bits(out, want)
+
+
+def _run_emu_tail(lib, s4, wsum, cnt, c1, T, err, active, it):
+    out = (torch.empty_like(T), torch.empty_like(err),
+           torch.empty_like(active))
+    assert lib.icp_tail_run(
+        s4.data_ptr(), s4.stride(0), wsum.data_ptr(), wsum.stride(0),
+        cnt.data_ptr(), c1.data_ptr(), T.data_ptr(), err.data_ptr(),
+        active.data_ptr(), *(o.data_ptr() for o in out), len(T),
+        int(it > 5), *(float(np.float32(v)) for v in (
+            ticp._DAMP, ticp._DAMP_ADD, ticp._MIN_WSUM, ticp._WSUM_FLOOR,
+            1e-5)), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("it", [5, 6])
+@pytest.mark.parametrize("b", [1, 69, 256])
+def test_emulated_icp_tail_matches_plain(emu, b, it):
+    """icp_tail_kernel against ops/icp.py ``_icp_tail_ref`` bit for bit (a
+    NaN equal to any NaN) on seeded states and the edge rows of
+    ``icp_tail_inputs`` (singular and non-finite C, -0.0 entries, a NaN
+    solution zeroed, no correspondences, inactive pairs, an error within
+    the convergence delta, angles past sin and cos's fast reduction), at
+    the last iteration before the convergence test and the first with
+    it, with round 4's totals read in place from a wider row and the
+    weight totals through a stride, as the step hands them over."""
+    s4, wsum, cnt, c1, T, err, active = icp_tail_inputs(
+        np.random.default_rng(b), b)
+    wide = torch.cat([torch.zeros(b, 5), s4, wsum[:, None]], 1)
+    s4_v, wsum_v = wide[:, 5:5 + s4.shape[1]], wide[:, -1]
+    want = ticp._icp_tail_ref(s4, wsum, cnt, c1, T, err, active, it)
+    got = _run_emu_tail(emu, s4_v, wsum_v, cnt, c1, T, err, active, it)
+    assert ticp.same_tail(got, want)
+    if b >= 14:
+        # a non-finite damping: every entry NaN, the solution zeroed, the
+        # update the identity
+        assert torch.equal(want[0][1:3], T[1:3])
+        assert not want[2][[7, 8, 9, 10]].any()
+        assert bool(want[2][11]) == (it <= 5)
+        x = torch.where(torch.isfinite(s4[:14, 36:39]), -s4[:14, 36:39]
+                        / 0.01, 0.0)
+        assert x[12].abs().max() > 1e19

@@ -1,7 +1,7 @@
-"""Device milliseconds of the port's per-pair sum, fused multiply-add and
-6x6 solve kernels at their main-path shapes, for the checkout this file
-sits in or another one, so that two versions of the port can be timed in
-turns on the same card by one measure: chip_smoke.py's ``kernel_ms`` and
+"""Device milliseconds of the port's per-pair sum, fused multiply-add,
+6x6 solve and ICP-tail kernels at their main-path shapes, for the
+checkout this file sits in or another one, so that two versions of the
+port can be timed in turns on the same card by one measure: chip_smoke.py's ``kernel_ms`` and
 ``queued_ms`` (CUDA events around back-to-back calls queued behind a spin
 kernel, every call launching its kernel once), which also times the
 library call beside each kernel.
@@ -14,7 +14,9 @@ step's rounds 3 and 4 of per-pair sums at 64 pairs x 4,096 points
 (``icp._specs``; beside torch.bmm's Gram product of the same columns); one
 fused multiply-add over 4,194,304 entries (``pairsum.fma`` where the
 package has it, else the chain c * 1, then a * b; beside torch.addcmul);
-the 6x6 solve of 69 systems (beside torch.linalg.solve_ex). Each kernel's
+the 6x6 solve of 69 systems (beside torch.linalg.solve_ex); where the
+package has it, the ICP step's tail of 69 pairs on the same systems
+(beside the launch floor, an empty kernel). Each kernel's
 output is held to its plain version bit for bit first. Prints one JSON
 line: the package root, the card (name and power limit, as nvidia-smi
 gives them) and the times. Needs a CUDA device and raises without one.
@@ -106,6 +108,27 @@ def main(argv=None) -> int:
         "ms": cs.kernel_ms(lambda: lu6.solve(cm, rhs), "lu6"),
         "library_ms": cs.queued_ms(
             lambda: torch.linalg.solve_ex(cm, rhs)[0])[0]}
+
+    if "icp_tail" in pairsum.KERNELS:
+        # the ICP tail over the same 69 systems (undamped: the tail damps
+        # them), with seeded weight totals, counts, centroids and poses
+        s4 = torch.cat([cm.reshape(s, 36), -rhs, torch.rand(
+            s, 1, device=cuda)], 1)
+        args = (s4, 1 + 99 * torch.rand(s, device=cuda),
+                torch.randint(1, 4096, (s,), device=cuda),
+                torch.randn(s, 3, device=cuda), torch.randn(s, 4, 4,
+                                                            device=cuda),
+                torch.rand(s, device=cuda),
+                torch.ones(s, dtype=torch.bool, device=cuda), 6)
+        got = icp._icp_tail(*args)
+        want = icp._icp_tail_ref(*(a.cpu() if torch.is_tensor(a) else a
+                                   for a in args))
+        if not icp.same_tail([g.cpu() for g in got], want):
+            raise SystemExit("icp_tail: differs from the plain version")
+        rows[f"icp_tail, {s} pairs"] = {
+            "ms": cs.kernel_ms(lambda: icp._icp_tail(*args), "icp_tail"),
+            "launch_floor_ms": cs.queued_ms(
+                lambda: pairsum.run("empty", cuda))[0]}
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
