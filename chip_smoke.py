@@ -9,13 +9,14 @@ result lines:
              refuses to run without CUDA;
 2. build   — the native host library and the two CUDA libraries (gated NN;
              per-pair sums, fma chains, the 6x6 solve, XLA's f32 math,
-             scoring's per-point terms and the ICP step's tail), from this
-             checkout's sources, the three
+             scoring's per-point terms and the ICP step's head and tail),
+             from this checkout's sources, the three
              compilers started together; ptxas's report and, per gated-NN
              instantiation, its residency (CTAs per SM by the occupancy
              calculator, registers, shared and local bytes); fails unless
-             ptxas gives icp_tail_kernel and lu6_kernel a 0-byte stack
-             frame and no spills (every value in registers);
+             ptxas gives every instantiation of icp_head_kernel,
+             icp_tail_kernel and lu6_kernel a 0-byte stack frame and no
+             spills (every value in registers);
 3. kernels — K1 (gated_min) and K2 (nearest_gated) against their plain
              PyTorch versions on the card: random fixtures (duplicated
              points, both tile sizes, both gate kinds, a query count that
@@ -55,12 +56,14 @@ result lines:
              K2 launches of that run are recorded and then held to the
              plain version and measured as the bench launches of phase 3
              are, and so is the first launch of every shape of that run
-             of pairsum, the fma chains, the score terms and the ICP tail
-             (the tail: of every pair count, before and after the
-             convergence test starts), each measured at its largest
-             (beside torch.addcmul, a byte-rate yardstick; the tail beside
-             the launch floor, an empty kernel, and torch.linalg.solve_ex
-             of its systems); the standalone lu6 and XLA-math kernels,
+             of pairsum, the fma chains, the score terms, the ICP head
+             (of every form) and the ICP tail (the tail: of every pair
+             count, before and after the convergence test starts), each
+             measured at its largest (beside torch.addcmul, a byte-rate
+             yardstick; the head and the tail beside the launch floor, an
+             empty kernel; the tail beside torch.linalg.solve_ex of its
+             systems; the head's plain version on CPU copies of its
+             operands); the standalone lu6 and XLA-math kernels,
              whose device functions the tail runs, on the tail launches'
              systems and angles, held and measured alike; the rescan's
              distance from the slab run, the fma-family launches, and the
@@ -126,7 +129,7 @@ KERNEL_SOURCE = "rescan_tpu_torch/ops/csrc/gnn.cu"
 REPLACES = "rescan_tpu/ops/pallas_nn.py:141"
 PAIRSUM_SOURCE = "rescan_tpu_torch/ops/csrc/pairsum.cu"
 PORT_KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms",
-                "icp_tail")
+                "icp_head", "icp_tail")
 # the standalone 6x6 solve and XLA-math kernels: the main path runs their
 # device functions inside icp_tail_kernel, and launches them on their own
 # nowhere
@@ -135,17 +138,18 @@ SOURCES = dict.fromkeys(PORT_KERNELS, PAIRSUM_SOURCE)
 # no Pallas kernel: XLA's compiled arithmetic of the ICP step and of
 # scoring: the step's sums (from the first), its fused products (from the
 # first), its 6x6 solve, the rotation's cos and sin (XLA's f32 functions),
-# scoring's per-point terms, the step's tail after its sums (from the
-# trace)
+# scoring's per-point terms, the step's per-point work between its sums
+# (from the gathers), the step's tail after its sums (from the trace)
 REPLACES_OF = {"pairsum": "rescan_tpu/ops/icp.py:132",
                "fma": "rescan_tpu/ops/icp.py:101",
                "lu6": "rescan_tpu/ops/icp.py:162",
                "xla_math": "rescan_tpu/ops/icp.py:43",
                "score_terms": "rescan_tpu/ops/score.py:160",
+               "icp_head": "rescan_tpu/ops/icp.py:125",
                "icp_tail": "rescan_tpu/ops/icp.py:160"}
-# the kernels whose ptxas report must show no stack frame and no spills:
-# every value in registers
-REGISTER_RESIDENT = ("icp_tail_kernel", "lu6_kernel")
+# the kernels whose ptxas report must show no stack frame and no spills
+# (every instantiation): every value in registers
+REGISTER_RESIDENT = ("icp_head_kernel", "icp_tail_kernel", "lu6_kernel")
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
 REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
 REF3_SLAB_NPZ = os.path.join(HERE, "tests", "data",
@@ -297,13 +301,13 @@ def phase_build() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", "ptxas " + line.strip())
     for kernel in REGISTER_RESIDENT:
-        use = ptxas_usage(pairsum.BUILD_LOG, kernel)
-        say("build", f"ptxas {kernel}: {use['registers']} registers, "
-            f"{use['stack']} bytes stack frame, {use['spill_stores']} bytes "
-            f"spill stores, {use['spill_loads']} bytes spill loads")
-        if use["stack"] or use["spill_stores"] or use["spill_loads"]:
-            raise SystemExit(f"[build] FAIL {kernel}: not register-resident "
-                             f"({use})")
+        for name, use in ptxas_usage(pairsum.BUILD_LOG, kernel).items():
+            say("build", f"ptxas {name}: {use['registers']} registers, "
+                f"{use['stack']} bytes stack frame, {use['spill_stores']} "
+                f"bytes spill stores, {use['spill_loads']} bytes spill loads")
+            if use["stack"] or use["spill_stores"] or use["spill_loads"]:
+                raise SystemExit(f"[build] FAIL {name}: not "
+                                 f"register-resident ({use})")
     # what would cap the CTAs per SM, each alone, on an H100: 65,536
     # registers (allocated per warp in units of 256), 228 KiB of shared
     # memory (1 KiB of it reserved per CTA), 32 CTA slots
@@ -321,27 +325,32 @@ def phase_build() -> None:
 
 
 def ptxas_usage(log: str, kernel: str) -> dict:
-    """A kernel's registers, stack frame and spills (bytes) from ptxas's
-    -v report; fails where the report does not name it."""
+    """Each instantiation of a kernel (by its mangled name) with its
+    registers, stack frame and spills (bytes) from ptxas's -v report;
+    fails where the report does not give them all."""
     lines = log.splitlines()
-    use = {}
+    uses = {}
     for i, line in enumerate(lines):
-        if "Function properties for" in line and kernel in line:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", lines[i + 1])
-            if m:
-                use.update(zip(("stack", "spill_stores", "spill_loads"),
-                               map(int, m.groups())))
-        if "Compiling entry function" in line and kernel in line:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and kernel in m.group(1):
+            st = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", lines[i + 1])
+            if st:
+                uses.setdefault(m.group(1), {}).update(zip(
+                    ("stack", "spill_stores", "spill_loads"),
+                    map(int, st.groups())))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and kernel in m.group(1):
             for nxt in lines[i + 1:]:
-                m = re.search(r"Used (\d+) registers", nxt)
-                if m:
-                    use["registers"] = int(m.group(1))
+                r = re.search(r"Used (\d+) registers", nxt)
+                if r:
+                    uses.setdefault(m.group(1), {})["registers"] = int(
+                        r.group(1))
                     break
-    if len(use) != 4:
+    if not uses or any(len(u) != 4 for u in uses.values()):
         raise SystemExit(f"[build] FAIL: ptxas's report does not give "
                          f"{kernel}'s registers, stack and spills")
-    return use
+    return uses
 
 
 def _compare(name, kernel_out, plain_out):
@@ -900,17 +909,19 @@ MAX_RECORDED = 64
 
 def _record_path_calls():
     """Wrap pairsum.pairsum, pairsum.fma_chains, score.per_point and the
-    ICP step's tail (icp._icp_tail) so that the first call of every
-    distinct shape on the card keeps a copy of its inputs (the tail: of
-    every pair count, before and after the convergence test starts; the
-    fma chains, whose operands are strided views, are held to their plain
-    chains right after the call instead, and keep their operands for the
+    ICP step's head and tail (icp._icp_head, icp._icp_tail) so that the
+    first call of every distinct shape on the card keeps a copy of its
+    inputs (the head: of every form and shape; the tail: of every pair
+    count, before and after the convergence test starts; the fma chains,
+    whose operands are strided views, are held to their plain chains
+    right after the call instead, and keep their operands for the
     timing); every call passes on unchanged. Returns (calls, undo)."""
     from rescan_tpu_torch import config
     from rescan_tpu_torch.ops import icp, pairsum, score
     calls = {k: {} for k in PORT_KERNELS if k not in INSIDE_TAIL}
     real = {"pairsum": pairsum.pairsum, "fma": pairsum.fma_chains,
-            "score_terms": score.per_point, "icp_tail": icp._icp_tail}
+            "score_terms": score.per_point, "icp_head": icp._icp_head,
+            "icp_tail": icp._icp_tail}
 
     def keep(name, key, make):
         if key not in calls[name] and len(calls[name]) < MAX_RECORDED:
@@ -941,6 +952,14 @@ def _record_path_calls():
                 d2.clone(), dot.clone(), found.clone(), mask.clone(), sigma))
         return real["score_terms"](d2, dot, found, mask, sigma)
 
+    def rec_head(form, *args):
+        if args[0].is_cuda:
+            keep("icp_head", (form, tuple(tuple(a.shape) for a in args
+                                          if torch.is_tensor(a))),
+                 lambda: (form,) + tuple(a.clone() if torch.is_tensor(a)
+                                         else a for a in args))
+        return real["icp_head"](form, *args)
+
     def rec_tail(*args):
         if args[0].is_cuda:
             keep("icp_tail", (args[0].shape[0],
@@ -950,11 +969,12 @@ def _record_path_calls():
 
     pairsum.pairsum, pairsum.fma_chains = rec_pairsum, rec_fma
     score.per_point, icp._icp_tail = rec_terms, rec_tail
+    icp._icp_head = rec_head
 
     def undo():
         pairsum.pairsum, pairsum.fma_chains = real["pairsum"], real["fma"]
         score.per_point = real["score_terms"]
-        icp._icp_tail = real["icp_tail"]
+        icp._icp_head, icp._icp_tail = real["icp_head"], real["icp_tail"]
     return calls, undo
 
 
@@ -1026,6 +1046,8 @@ def _path_launches(calls) -> dict:
         entries=n)
 
     rows.update(_tail_rows(calls["icp_tail"]))
+    rows["icp_head"] = _head_row(calls["icp_head"],
+                                 rows["icp_tail"]["launch_floor_ms"])
 
     e_s = 0.0
     for args in calls["score_terms"].values():
@@ -1145,6 +1167,103 @@ def _tail_rows(calls) -> dict:
     return rows
 
 
+# FP32 operations per point of each ICP head form (ops/icp.py
+# ``_icp_head``): A the weight (a division, a subtraction, a product); B
+# the deviation and its square; C sigmas * std and two compares; D p, p2 -
+# c2 and d (9 subtractions), the cross product (3 products and 3 FMAs), ddn
+# (3 products, 2 additions), w j6 (6 products) and ddn^2
+HEAD_FLOPS = (3, 2, 3, 9 + 9 + 5 + 6 + 1)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` by the host clock over ``reps`` runs
+    after one warm-up (a plain version that runs on the CPU)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _head_bytes(form: int, args, outs) -> int:
+    """The bytes one ICP head form must move: each operand read once (form
+    A's scene arrays: the rows its indices reach), each output written
+    once."""
+    from rescan_tpu_torch.ops import icp
+    ops = [a for a in args if torch.is_tensor(a)]
+    if form == icp.HEAD_A:
+        rows = int(torch.unique(args[0].clamp_min(0)).numel())
+        ops = ops[:4] + [ops[4][:rows], ops[5][:rows]]
+    return sum(v.numel() * v.element_size() for v in ops + list(outs))
+
+
+def _head_row(calls, floor: float) -> dict:
+    """Phase 5's ICP head launches (the first of every form and shape),
+    each held bit for bit (a NaN equal to any NaN) to
+    ``icp._icp_head_ref`` on CPU copies of its operands, since the plain
+    version takes no CUDA tensor; then at the largest launch of each form
+    its queued time, the plain version's on the host, the bound and the
+    launch floor. Returns the kernels line's row: one iteration's four
+    forms summed, each form beside it."""
+    from rescan_tpu_torch.ops import icp, lu6
+    err = 0.0
+    for form, *args in calls.values():
+        got = icp._icp_head(form, *args)
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        for g, w in zip(got, icp._icp_head_ref(form, *cpu)):
+            g = g.cpu()
+            if not (lu6.same_bits(g, w) if g.is_floating_point()
+                    else torch.equal(g, w)):
+                raise SystemExit(f"[slice] FAIL icp head path launch, form "
+                                 f"{form} {tuple(args[0].shape)}: differs "
+                                 f"from _icp_head_ref")
+            if g.is_floating_point():
+                err = max(err, _finite_err(g, w))
+    forms = {}
+    for form in icp.HEAD_FORMS:
+        mine = [c for c in calls.values() if c[0] == form]
+        if not mine:
+            raise SystemExit(f"[slice] FAIL: no icp head launch of form "
+                             f"{form} recorded")
+        args = max(mine, key=lambda c: c[1].shape[0] * c[1].shape[1])[1:]
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        b, n = args[0].shape[:2]
+        n_bytes = _head_bytes(form, args, icp._icp_head(form, *args))
+        bound, by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (HEAD_FLOPS[form] * b * n / FP32_FLOP_PER_S * 1e3,
+                         "operations"))
+        ms = kernel_ms(lambda f=form, a=args: icp._icp_head(f, *a),
+                       "icp_head")
+        forms["ABCD"[form]] = {
+            "pairs": b, "points": n, "ms": ms, "timing": TIMING,
+            "plain_ms": host_ms(lambda f=form, a=cpu: icp._icp_head_ref(
+                f, *a), 3), "bytes": n_bytes, "bound_ms": bound,
+            "bound_by": by, "share_of_bound": bound / ms}
+    row = {"ms": sum(f["ms"] for f in forms.values()), "timing": TIMING,
+           "plain_ms": sum(f["plain_ms"] for f in forms.values()),
+           "plain_on": "cpu (host clock): the plain version takes no CUDA "
+                       "tensor", "library_ms": None,
+           "bound_ms": sum(f["bound_ms"] for f in forms.values()),
+           "bound_by": "bytes" if all(f["bound_by"] == "bytes"
+                                      for f in forms.values())
+           else "operations", "launch_floor_ms": floor,
+           "max_abs_err": err, "launch_shapes_held": len(calls),
+           "forms": forms}
+    say("slice", f"icp head: {len(calls)} launch shapes (form x shape) of "
+        f"the run held to _icp_head_ref on the CPU, 0 mismatches; at the "
+        f"largest launch ({forms['A']['pairs']} pairs x "
+        f"{forms['A']['points']} points) " + "; ".join(
+            f"form {k} {f['ms']:.5f} ms (bound {f['bound_ms']:.5f} ms, "
+            f"{f['bound_by']}, {f['bytes']} B; plain on the CPU "
+            f"{f['plain_ms']:.3f} ms)" for k, f in forms.items())
+        + f"; the four {row['ms']:.5f} ms against a bound of "
+        f"{row['bound_ms']:.5f} ms and four launch floors of "
+        f"{4 * floor:.5f} ms")
+    print(json.dumps({"bench_launch": {"icp head, the largest path launch":
+                                       row}}), flush=True)
+    return row
+
+
 @contextlib.contextmanager
 def _aug_icp_sizes():
     """Record every one-pair ICP of the database augmentation
@@ -1230,7 +1349,8 @@ def phase_slice(cuda, root: str, class_file: str):
         f"{counts.tolist()}; {len(out['class_ids'])} level-1 points "
         f"labelled; the fma family (fma chains, XLA math, score terms) "
         f"{launches['fma'] + launches['xla_math'] + launches['score_terms']}"
-        f" launches; ICP tails {launches['icp_tail']} (standalone lu6 "
+        f" launches; ICP heads {launches['icp_head']} (four forms an "
+        f"iteration), ICP tails {launches['icp_tail']} (standalone lu6 "
         f"{launches['lu6']}, XLA math {launches['xla_math']})")
     _say_aug("slice", "bench rescan", aug())
     # held to the JAX package's run on the slab at every limit, and to its
@@ -1404,7 +1524,8 @@ def _mesh_dpsp(bench_root: str, slots) -> None:
     t_sh = time.perf_counter() - t0
     launches, plain = _counts()
     if (launches["nearest_gated"] == 0 or launches["pairsum"] == 0
-            or launches["icp_tail"] == 0 or any(plain.values())):
+            or launches["icp_head"] == 0 or launches["icp_tail"] == 0
+            or any(plain.values())):
         raise SystemExit(f"[mesh] FAIL (c): kernel launches {launches}, "
                          f"plain calls {plain}")
     t0 = time.perf_counter()
@@ -1791,6 +1912,10 @@ def main() -> int:
             out["launch_floor_ms"] = row["launch_floor_ms"]
         if name == "icp_tail":
             out["solve_library_ms"] = row["solve_library_ms"]
+        if name == "icp_head":
+            # one iteration's four forms at the largest launch, summed;
+            # the plain version on the CPU
+            out.update(forms=row["forms"], plain_on=row["plain_on"])
         if name in INSIDE_TAIL:
             # on the path inside icp_tail_kernel: each of its launches
             # runs this kernel's device function; timed standalone

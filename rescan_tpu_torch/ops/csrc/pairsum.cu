@@ -3,11 +3,13 @@
 // chains of correctly rounded fused multiply-adds over strided operands
 // (ops/pairsum.py ``fma_chains``), the batched 6x6 solve (ops/lu6.py),
 // XLA's f32 exp/arccos/cos/sin (ops/xla_math.py, csrc/xla_math.cuh),
-// scoring's per-point terms (ops/score.py ``per_point``) and the ICP
-// step's tail after its sums (ops/icp.py ``_icp_tail``: the solve, cos
-// and sin, and the products, in one launch). No Pallas kernel stands
-// behind these: they replace what XLA:CPU compiled for the JAX package
-// (rescan_tpu/ops/icp.py:43-45, 101-182; score.py:149-168).
+// scoring's per-point terms (ops/score.py ``per_point``), the ICP step's
+// per-point work between its rounds of sums (ops/icp.py ``_icp_head``:
+// four forms of one kernel) and its tail after them (ops/icp.py
+// ``_icp_tail``: the solve, cos and sin, and the products, in one
+// launch). No Pallas kernel stands behind these: they replace what
+// XLA:CPU compiled for the JAX package (rescan_tpu/ops/icp.py:43-45,
+// 101-182; score.py:149-168).
 //
 // pairsum_kernel: one CTA per pair. A sum in XLA's
 // order is a sequence of chains: every level-0 segment (a 32-point window
@@ -67,6 +69,11 @@ using SmallSum = SumShape<64, 256, 4, 4, 10>;
 #ifndef PAIRSUM_LAUNCH
 #define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...)                  \
   kernel<<<(blocks), (threads), 0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
+#endif
+// the same for a kernel whose threads never meet (no barrier, shared
+// memory or warp collective), which a host build may run one by one
+#ifndef PAIRSUM_LAUNCH_FREE
+#define PAIRSUM_LAUNCH_FREE PAIRSUM_LAUNCH
 #endif
 
 template <bool ADD>
@@ -718,6 +725,135 @@ icp_tail_kernel(const float* __restrict__ s4, int s4_ld, const float* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// icp_head_kernel: the ICP step's per-point work between its rounds of sums
+// (ops/icp.py ``_icp_head``), in the order ops/icp.py ``_icp_head_ref``
+// forms it, which is XLA's (rescan_tpu/ops/icp.py:123-157). One form a
+// launch, each after the round (or the search) it reads:
+//   HEAD_A after K2: ok = idx >= 0 & mask; p2, n2 gathered at max(idx, 0)
+//     from the scene's rows in original order; w0 = (1 - d2 / dist) * dot
+//     (a true division); round 1's operands [ok, d2] (d2 0 where not ok);
+//   HEAD_B after round 1: cnt = max(trunc(s1[0]), 1), mean = s1[1] / cnt;
+//     round 2's operand (d2 - mean)^2, 0 where not ok; the raw counts;
+//   HEAD_C after round 2: std = sqrt(s2 / cnt) correctly rounded, w = w0
+//     where std <= std_floor or d2 <= sigmas * std, else 0; round 3's
+//     operands [w, q, p2];
+//   HEAD_D after round 3: wsafe = max(s3[0], wsum_floor) (a NaN stays), c1,
+//     c2 the centroids, p = q - c1, d = p - (p2 - c2), p x n2 as
+//     fma(a, b, -(c * d)), ddn = (d0 n0 + d1 n1) + d2 n2, j6 = [p x n2, n2];
+//     round 4's operands [w j6, j6, ddn, w, ddn^2]; c1 for the tail.
+// A thread a point; a pair's scalars (from the round before) are
+// recomputed by each of its threads from the same few totals, so nothing
+// is shared and no thread waits on another (a host build may run the
+// threads one by one). Bound: bytes, at most ~100 a point (HEAD_D reads
+// 40 and writes 60); every select gives +0.0, as torch.where does.
+// ---------------------------------------------------------------------------
+
+constexpr int HEAD_A = 0, HEAD_B = 1, HEAD_C = 2, HEAD_D = 3;
+// operands of a form, in ops/icp.py ``_HEAD_OPERANDS``' order (unused
+// slots null)
+constexpr int HEAD_IN = 6, HEAD_OUT = 4;
+struct HeadIo {
+  const void* in[HEAD_IN];
+  void* out[HEAD_OUT];
+};
+// ops/icp.py's constants as float32: the search radius of this iteration,
+// wsafe's floor, the rejection's least std and its multiple of the std
+struct HeadConsts {
+  float dist, wsum_floor, std_floor, sigmas;
+};
+
+__device__ __forceinline__ const float* fin(const HeadIo& io, int k) {
+  return static_cast<const float*>(io.in[k]);
+}
+__device__ __forceinline__ float* fout(const HeadIo& io, int k) {
+  return static_cast<float*>(io.out[k]);
+}
+
+// round 1's counts as the step keeps them: the f32 total truncated to int64
+__device__ __forceinline__ long long count_of(const float* s1, long long b) {
+  return static_cast<long long>(s1[b * 2]);
+}
+__device__ __forceinline__ float count_div(const float* s1, long long b) {
+  const long long c = count_of(s1, b);
+  return static_cast<float>(c < 1 ? 1 : c);
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(THREADS)
+icp_head_kernel(const HeadIo io, long long total, int n, const HeadConsts k) {
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= total) return;
+  const long long b = i / n;
+  const bool first = i - b * n == 0;
+  if (FORM == HEAD_A) {
+    const int id = static_cast<const int*>(io.in[0])[i];
+    const bool ok = id >= 0 && static_cast<const uint8_t*>(io.in[3])[i] != 0;
+    const long long r = id < 0 ? 0 : id;
+    const float d2 = fin(io, 1)[i], dot = fin(io, 2)[i];
+    float* x1 = fout(io, 0);
+    x1[2 * i] = ok ? 1.0f : 0.0f;
+    x1[2 * i + 1] = ok ? d2 : 0.0f;
+    fout(io, 1)[i] = ok ? __fmul_rn(__fsub_rn(1.0f, __fdiv_rn(d2, k.dist)), dot) : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      fout(io, 2)[3 * i + c] = fin(io, 4)[3 * r + c];
+      fout(io, 3)[3 * i + c] = fin(io, 5)[3 * r + c];
+    }
+  } else if (FORM == HEAD_B) {
+    const float* x1 = fin(io, 0);
+    const float* s1 = fin(io, 1);
+    const float mean = __fdiv_rn(s1[b * 2 + 1], count_div(s1, b));
+    const float dev = __fsub_rn(x1[2 * i + 1], mean);
+    fout(io, 0)[i] = x1[2 * i] != 0.0f ? __fmul_rn(dev, dev) : 0.0f;
+    if (first) static_cast<long long*>(io.out[1])[b] = count_of(s1, b);
+  } else if (FORM == HEAD_C) {
+    const float* x1 = fin(io, 0);
+    const float* s1 = fin(io, 2);
+    const float sd = __fsqrt_rn(__fdiv_rn(fin(io, 3)[b], count_div(s1, b)));
+    const bool keep = sd <= k.std_floor || x1[2 * i + 1] <= __fmul_rn(k.sigmas, sd);
+    float* x3 = fout(io, 0) + 7 * i;
+    x3[0] = keep ? fin(io, 1)[i] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x3[1 + c] = fin(io, 4)[3 * i + c];
+      x3[4 + c] = fin(io, 5)[3 * i + c];
+    }
+  } else {
+    const float* x3 = fin(io, 0) + 7 * i;
+    const float* nr = fin(io, 1) + 3 * i;
+    const float* s3 = fin(io, 2) + 7 * b;
+    const float wsum = s3[0];
+    const float wsafe = wsum < k.wsum_floor ? k.wsum_floor : wsum;  // a NaN stays
+    float p[3], d[3], nv[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float c1 = __fdiv_rn(s3[1 + c], wsafe);
+      const float c2 = __fdiv_rn(s3[4 + c], wsafe);
+      p[c] = __fsub_rn(x3[1 + c], c1);
+      d[c] = __fsub_rn(p[c], __fsub_rn(x3[4 + c], c2));
+      nv[c] = nr[c];
+      if (first) fout(io, 1)[3 * b + c] = c1;
+    }
+    const float w = x3[0];
+    const float ddn = __fadd_rn(__fadd_rn(__fmul_rn(d[0], nv[0]), __fmul_rn(d[1], nv[1])),
+                                __fmul_rn(d[2], nv[2]));
+    const float j6[6] = {__fmaf_rn(p[1], nv[2], -__fmul_rn(p[2], nv[1])),
+                         __fmaf_rn(p[2], nv[0], -__fmul_rn(p[0], nv[2])),
+                         __fmaf_rn(p[0], nv[1], -__fmul_rn(p[1], nv[0])),
+                         nv[0], nv[1], nv[2]};
+    float* x4 = fout(io, 0) + 15 * i;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      x4[c] = __fmul_rn(w, j6[c]);
+      x4[6 + c] = j6[c];
+    }
+    x4[12] = ddn;
+    x4[13] = w;
+    x4[14] = __fmul_rn(ddn, ddn);
+  }
+}
+
 // the launch floor's yardstick: a kernel that does nothing
 __global__ void empty_kernel() {}
 
@@ -782,6 +918,35 @@ extern "C" int icp_tail_run(const float* s4, int s4_ld, const float* wsum, int w
   PAIRSUM_LAUNCH(icp_tail_kernel, n, WARP, stream, s4, s4_ld, wsum, wsum_ld, cnt, c1, T, err,
                  active, T_out, err_out, active_out, may_converge, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int FORM>
+int icp_head_launch(const HeadIo& io, long long total, int n, const HeadConsts& k,
+                    void* stream) {
+  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
+  PAIRSUM_LAUNCH_FREE(icp_head_kernel<FORM>, blocks, THREADS, stream, io, total, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one form of the ICP step's head over n_pairs pairs of n points
+// (icp_head_kernel; ops/icp.py ``_icp_head`` lays out the operands): in
+// and out, host arrays of HEAD_IN and HEAD_OUT device pointers
+extern "C" int icp_head_run(int form, const void* const* in, void* const* out,
+                            long long n_pairs, int n, float dist, float wsum_floor,
+                            float std_floor, float sigmas, void* stream) {
+  const long long total = n_pairs * n;
+  if (total <= 0) return 0;
+  HeadIo io;
+  for (int j = 0; j < HEAD_IN; ++j) io.in[j] = in[j];
+  for (int j = 0; j < HEAD_OUT; ++j) io.out[j] = out[j];
+  const HeadConsts k{dist, wsum_floor, std_floor, sigmas};
+  switch (form) {
+    case HEAD_A: return icp_head_launch<HEAD_A>(io, total, n, k, stream);
+    case HEAD_B: return icp_head_launch<HEAD_B>(io, total, n, k, stream);
+    case HEAD_C: return icp_head_launch<HEAD_C>(io, total, n, k, stream);
+    case HEAD_D: return icp_head_launch<HEAD_D>(io, total, n, k, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // one launch of a kernel that does nothing (the launch floor)

@@ -22,6 +22,7 @@ package, quirks included:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -149,12 +150,14 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     around them is formed as XLA forms it (ops/pairsum.py lists both), so
     a step from the same state equals the JAX package's bit for bit. The
     sums come in four dependent rounds (ok count and d2; squared
-    deviations; w, w*q and w*p2; the normal system and the error).
-    ``sums(x, spec)``: the (B, Q) totals of one round over the whole
-    point axis; with each pair's points split over shards
-    (parallel/mesh.py, the sp mode) it continues the chains shard after
-    shard. ``pairsum.sums`` when None. ``single``: follow the orders XLA
-    compiles for a launch of one pair (see ``_specs``)."""
+    deviations; w, w*q and w*p2; the normal system and the error); the
+    per-point work before each is one ``_icp_head`` form, the per-pair
+    work after the last one ``_icp_tail``. On the card nothing in the step
+    waits for the device. ``sums(x, spec)``: the (B, Q) totals of one
+    round over the whole point axis; with each pair's points split over
+    shards (parallel/mesh.py, the sp mode) it continues the chains shard
+    after shard. ``pairsum.sums`` when None. ``single``: follow the orders
+    XLA compiles for a launch of one pair (see ``_specs``)."""
     sums = sums or pairsum.sums
     B, N, _ = obj_pts.shape
     spec3, spec4 = _specs(N, single)
@@ -165,44 +168,156 @@ def _icp_step(obj_pts, obj_nrm, obj_mask, index, scene_pts, scene_nrm, T,
     q = torch.where(active[:, None, None], q, 2e6)
     idx, d2, dot = search.nearest_gated(index, q.reshape(B * N, 3),
                                         qn.reshape(B * N, 3), dist, cos_gate)
-    idx = idx.reshape(B, N).long()
-    d2 = d2.reshape(B, N)
-    dot = dot.reshape(B, N)
-    ok = (idx >= 0) & obj_mask
-    idx_safe = idx.clamp_min(0)
-    p2 = scene_pts[idx_safe]
-    n2 = scene_nrm[idx_safe]
+    x1, w0, p2, n2 = _icp_head(HEAD_A, idx.reshape(B, N), d2.reshape(B, N),
+                               dot.reshape(B, N), obj_mask, scene_pts,
+                               scene_nrm, dist)
+    s1 = sums(x1, _SPEC1)
+    x2, cnt_raw = _icp_head(HEAD_B, x1, s1)
+    s2 = sums(x2, _SPEC2)
+    x3, = _icp_head(HEAD_C, x1, w0, s1, s2, q, p2)
+    s3 = sums(x3, spec3)
+    x4, c1 = _icp_head(HEAD_D, x3, n2, s3)
+    s4 = sums(x4, spec4)
+    return _icp_tail(s4, s3[:, 0], cnt_raw, c1, T, err, active, it)
 
-    w = torch.where(ok, (1.0 - div(d2, dist)) * dot, 0.0)
-    # 2.5-sigma rejection on squared distances (icp.h:393-401)
-    s1 = sums(torch.stack([ok.float(), torch.where(ok, d2, 0.0)], -1),
-              _SPEC1)
+
+# the step's head (``_icp_head``): one form after K2 and after each of the
+# first three rounds of sums
+HEAD_A, HEAD_B, HEAD_C, HEAD_D = range(4)
+HEAD_FORMS = (HEAD_A, HEAD_B, HEAD_C, HEAD_D)
+# the 2.5-sigma rejection (icp.py:138-139): every weight is kept where the
+# pair's std is at most _STD_FLOOR, else where d2 <= _SIGMAS * std
+_STD_FLOOR = 1e-6
+_SIGMAS = 2.5
+_f32, _i32, _i64, _bool = torch.float32, torch.int32, torch.int64, torch.bool
+# per form, its operands (shape over B pairs of N points and M scene rows,
+# dtype) then its outputs, in csrc/pairsum.cu HeadIo's order
+_HEAD_OPERANDS = {
+    HEAD_A: ((("B", "N"), _i32), (("B", "N"), _f32), (("B", "N"), _f32),
+             (("B", "N"), _bool), (("M", 3), _f32), (("M", 3), _f32)),
+    HEAD_B: ((("B", "N", 2), _f32), (("B", 2), _f32)),
+    HEAD_C: ((("B", "N", 2), _f32), (("B", "N"), _f32), (("B", 2), _f32),
+             (("B", 1), _f32), (("B", "N", 3), _f32), (("B", "N", 3), _f32)),
+    HEAD_D: ((("B", "N", 7), _f32), (("B", "N", 3), _f32), (("B", 7), _f32)),
+}
+_HEAD_OUTPUTS = {
+    HEAD_A: ((("B", "N", 2), _f32), (("B", "N"), _f32),
+             (("B", "N", 3), _f32), (("B", "N", 3), _f32)),
+    HEAD_B: ((("B", "N", 1), _f32), (("B",), _i64)),
+    HEAD_C: ((("B", "N", 7), _f32),),
+    HEAD_D: ((("B", "N", 15), _f32), (("B", 3), _f32)),
+}
+
+
+def _icp_head(form: int, *args) -> tuple:
+    """One form of the step's per-point work between its rounds of sums,
+    as a tuple of its outputs:
+
+    * ``HEAD_A`` (idx (B, N) int32 from K2, d2, dot, obj_mask, scene_pts,
+      scene_nrm, dist): round 1's operands x1 (B, N, 2) = [ok, d2 where
+      ok], the weights w0 (B, N) and the gathered p2, n2 (B, N, 3);
+    * ``HEAD_B`` (x1, round 1's totals s1 (B, 2)): round 2's operand (B,
+      N, 1) and the raw counts (B,) int64;
+    * ``HEAD_C`` (x1, w0, s1, round 2's totals s2 (B, 1), q, p2): round
+      3's operands [w, q, p2] (B, N, 7), the 2.5-sigma rejection applied;
+    * ``HEAD_D`` (the round-3 operands, n2, their totals s3 (B, 7)): round
+      4's operands (B, N, 15) and the centroid c1 (B, 3).
+
+    On CUDA tensors one ``icp_head_kernel`` launch (csrc/pairsum.cu, a
+    thread a point); on CPU tensors ``_icp_head_ref``, which it equals bit
+    for bit. K2's indices must lie below the scene's rows (the kernel
+    gathers without a check)."""
+    if not args[0].is_cuda:
+        pairsum._count(pairsum.PLAIN_CALLS, "icp_head")
+        return _icp_head_ref(form, *args)
+    ops, outs, cargs = head_operands(form, *args)
+    if outs[0].numel():
+        pairsum.run("icp_head", ops[0].device, *cargs)
+    return outs
+
+
+def head_operands(form: int, *args) -> tuple:
+    """(operands, outputs, C arguments of ``icp_head_run`` but the stream)
+    of one ``_icp_head`` launch: the operands checked and made contiguous
+    (keep them alive through the call), the outputs allocated beside
+    them."""
+    n_ops = len(_HEAD_OPERANDS[form])
+    ops = args[:n_ops]
+    B, N = ops[0].shape[:2]
+    dims = {"B": B, "N": N, "M": args[4].shape[0] if form == HEAD_A else 0}
+    want = [(tuple(dims.get(d, d) for d in shape), dtype)
+            for shape, dtype in _HEAD_OPERANDS[form]]
+    if N == 0 or len(args) != n_ops + (form == HEAD_A) or any(
+            not torch.is_tensor(v) or tuple(v.shape) != shape
+            or v.dtype != dtype or v.device != ops[0].device
+            for v, (shape, dtype) in zip(ops, want)):
+        raise ValueError(
+            f"icp_head form {form}: want operands {want} (and dist for "
+            f"form {HEAD_A}) on one device, N > 0, got " + ", ".join(
+                f"{tuple(v.shape)} {v.dtype} {v.device}" if torch.is_tensor(
+                    v) else repr(v) for v in args))
+    ops = tuple(v.contiguous() for v in ops)
+    outs = tuple(torch.empty(tuple(dims.get(d, d) for d in shape),
+                             dtype=dtype, device=ops[0].device)
+                 for shape, dtype in _HEAD_OUTPUTS[form])
+    dist = args[-1] if form == HEAD_A else 0.0
+    cargs = (form, (ctypes.c_void_p * 6)(*(v.data_ptr() for v in ops)),
+             (ctypes.c_void_p * 4)(*(v.data_ptr() for v in outs)), B, N,
+             *(float(np.float32(v)) for v in (dist, _WSUM_FLOOR, _STD_FLOOR,
+                                               _SIGMAS)))
+    return ops, outs, cargs
+
+
+def _icp_head_ref(form: int, *args) -> tuple:
+    """The plain PyTorch ``_icp_head`` (CPU tensors only), in the order
+    XLA computes icp.py:123-157: the step's torch code between its rounds
+    of sums, each form reading ``ok`` and the masked d2 from round 1's
+    operands."""
+    if any(torch.is_tensor(v) and v.device.type != "cpu" for v in args):
+        raise ValueError("icp_head: the plain version takes CPU tensors")
+    if form == HEAD_A:
+        idx, d2, dot, obj_mask, scene_pts, scene_nrm, dist = args
+        idx = idx.long()
+        ok = (idx >= 0) & obj_mask
+        idx_safe = idx.clamp_min(0)
+        p2 = scene_pts[idx_safe]
+        n2 = scene_nrm[idx_safe]
+        w = torch.where(ok, (1.0 - div(d2, dist)) * dot, 0.0)
+        return (torch.stack([ok.float(), torch.where(ok, d2, 0.0)], -1), w,
+                p2, n2)
+    if form == HEAD_D:
+        x3, n2, s3 = args
+        w, q, p2 = x3[..., 0], x3[..., 1:4], x3[..., 4:7]
+        wsum = s3[:, 0]
+        wsafe = wsum.clamp_min(_WSUM_FLOOR)
+        c1 = s3[:, 1:4] / wsafe[:, None]
+        c2 = s3[:, 4:7] / wsafe[:, None]
+        p = q - c1[:, None, :]
+        d = p - (p2 - c2[:, None, :])
+        cxn = _cross(p, n2)
+        ddn = d[..., 0] * n2[..., 0] + d[..., 1] * n2[..., 1] \
+            + d[..., 2] * n2[..., 2]
+        # 6x6 normal system: J = [c; n] per correspondence (Low '04)
+        j6 = torch.cat([cxn, n2], -1)                        # (B, N, 6)
+        wj6 = w[..., None] * j6
+        return torch.cat([wj6, j6, ddn[..., None], w[..., None],
+                          (ddn * ddn)[..., None]], -1), c1
+    x1, s1 = args[0], args[2 if form == HEAD_C else 1]
+    ok = x1[..., 0] > 0
+    d2 = x1[..., 1]
     cnt_raw = s1[:, 0].long()
     cnt = cnt_raw.clamp_min(1)
-    mean = s1[:, 1] / cnt
-    dev = d2 - mean[:, None]
-    var = sums(torch.where(ok, dev * dev, 0.0)[..., None], _SPEC2)[:, 0] / cnt
+    if form == HEAD_B:
+        # 2.5-sigma rejection on squared distances (icp.h:393-401)
+        mean = s1[:, 1] / cnt
+        dev = d2 - mean[:, None]
+        return torch.where(ok, dev * dev, 0.0)[..., None], cnt_raw
+    _, w, _, s2, q, p2 = args
+    var = s2[:, 0] / cnt
     std = _sqrt(var)
-    keep = (std[:, None] <= 1e-6) | (d2 <= 2.5 * std[:, None])
+    keep = (std[:, None] <= _STD_FLOOR) | (d2 <= _SIGMAS * std[:, None])
     w = torch.where(keep, w, 0.0)
-
-    s3 = sums(torch.cat([w[..., None], q, p2], -1), spec3)
-    wsum = s3[:, 0]
-    wsafe = wsum.clamp_min(_WSUM_FLOOR)
-    c1 = s3[:, 1:4] / wsafe[:, None]
-    c2 = s3[:, 4:7] / wsafe[:, None]
-    p = q - c1[:, None, :]
-    d = p - (p2 - c2[:, None, :])
-    cxn = _cross(p, n2)
-    ddn = d[..., 0] * n2[..., 0] + d[..., 1] * n2[..., 1] \
-        + d[..., 2] * n2[..., 2]
-
-    # 6x6 normal system: J = [c; n] per correspondence (Low '04)
-    j6 = torch.cat([cxn, n2], -1)                            # (B, N, 6)
-    wj6 = w[..., None] * j6
-    s4 = sums(torch.cat([wj6, j6, ddn[..., None], w[..., None],
-                         (ddn * ddn)[..., None]], -1), spec4)
-    return _icp_tail(s4, wsum, cnt_raw, c1, T, err, active, it)
+    return (torch.cat([w[..., None], q, p2], -1),)
 
 
 def _icp_tail(s4, wsum, cnt_raw, c1, T, err, active, it: int):

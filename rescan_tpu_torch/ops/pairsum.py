@@ -129,9 +129,10 @@ FOLD_MAX = 256
 ONE = -1
 
 # the library's kernels: the sums, the fma chains, ops/lu6.py's solve,
-# ops/xla_math.py's functions, ops/score.py's per-point terms and the ICP
-# step's tail (ops/icp.py ``_icp_tail``)
-KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms", "icp_tail")
+# ops/xla_math.py's functions, ops/score.py's per-point terms, the ICP
+# step's head and tail (ops/icp.py ``_icp_head``, ``_icp_tail``)
+KERNELS = ("pairsum", "fma", "lu6", "xla_math", "score_terms", "icp_head",
+           "icp_tail")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
@@ -325,14 +326,16 @@ def new_state(b: int, q: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _tops(key: tuple, n_total: int) -> tuple:
-    return tuple(top_level(k, n_total) for k, _, _ in key)
+def _tops_on(key: tuple, n_total: int, device: str) -> torch.Tensor:
+    return torch.tensor([top_level(k, n_total) for k, _, _ in key],
+                        dtype=torch.long).to(device)
 
 
 def totals(state: torch.Tensor, spec, n_total: int) -> torch.Tensor:
-    """(B, Q) sums held in a state after all n_total points."""
-    tops = torch.tensor(_tops(_spec_key(spec), n_total), dtype=torch.long,
-                        device=state.device)
+    """(B, Q) sums held in a state after all n_total points (the levels'
+    index on the state's device is cached: no copy from the host, which
+    would wait on the card, after the first call)."""
+    tops = _tops_on(_spec_key(spec), n_total, str(state.device))
     return state.gather(2, tops[None, :, None].expand(state.shape[0], -1,
                                                       1))[..., 0]
 
@@ -638,6 +641,7 @@ def bind(lib):
             ("score_terms", [vp, vp, vp, vp, vp, i64, f32, f32, f32, f32]),
             ("icp_tail", [vp, i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
                           i32, i32, f32, f32, f32, f32, f32]),
+            ("icp_head", [i32, vp, vp, i64, i32, f32, f32, f32, f32]),
             ("empty", [])):
         fn = getattr(lib, f"{name}_run")
         fn.restype = ctypes.c_int

@@ -5,7 +5,8 @@
 // std::threads that meet at a barrier for every warp collective; in
 // emulate_block_launch a block is any number of std::threads that meet at
 // a barrier for every __syncthreads (warp collectives only in a block of
-// 32); blocks run one after another. cp.async becomes a plain copy; the f32 and f64
+// 32); in emulate_serial_launch every thread runs in turn on the calling
+// thread; blocks run one after another. cp.async becomes a plain copy; the f32 and f64
 // intrinsics are the host's IEEE operations (fmaf and fma are correctly
 // rounded fused multiply-adds).
 #pragma once
@@ -164,5 +165,19 @@ inline void emulate_block_launch(unsigned grid, unsigned threads,
         body();
       });
     for (auto& t : ts) t.join();
+  }
+}
+
+// stands in for kernel<<<grid, threads>>>(...) of a kernel whose threads
+// never meet (no barrier, shared memory or warp collective): every thread
+// of every block in turn, on the calling thread
+inline void emulate_serial_launch(unsigned grid, unsigned threads,
+                                  const std::function<void()>& body) {
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    for (unsigned t = 0; t < threads; ++t) {
+      threadIdx.x = t;
+      body();
+    }
   }
 }

@@ -1,6 +1,7 @@
 """The CUDA kernels (gated NN; per-pair sums, fma chains, the 6x6 solve,
-XLA's f32 math and scoring's per-point terms) against their plain
-PyTorch versions, and the port's paths that run them, on the card.
+XLA's f32 math, scoring's per-point terms, the ICP step's head and tail)
+against their plain PyTorch versions, and the port's paths that run them,
+on the card.
 
 Imports no JAX, so it runs on a machine without it:
 
@@ -469,6 +470,102 @@ def icp_tail_inputs(rng, b: int, device="cpu"):
                  for v in (s4, wsum, cnt, c1, T, err, active))
 
 
+def icp_head_inputs(rng, b: int, n: int, m: int = 1000) -> dict:
+    """The ICP head's operands (ops/icp.py ``_icp_head``) for ``b`` pairs of
+    ``n`` points against ``m`` scene rows, form by form (CPU tensors, dist
+    after form A's): seeded K2 results (a fifth of idx -1, the mask a
+    random prefix of each pair), per-pair totals formed from the points
+    (in float64, rounded: any totals are valid operands), and the edge
+    rows: in every pair idx -1 under the mask, a masked point with a
+    match, d2 of 0 and -0.0, a dot of -0.0 and a subnormal one; from 8
+    pairs on, pairs with no correspondence (all idx -1), inactive (q at
+    2e6, no match), all masked, all d2 equal (std 0), one correspondence
+    whose std is f32(1e-6) exactly and one whose std is the next float
+    above it, d2 at 2.5 * std and one float either side, a count of 0
+    beside correspondences (its floor of 1); round 3's totals
+    with weight totals of 0, -0.0, 1e-31 (below the 1e-30 floor),
+    subnormal, below 1e-7 and NaN, and centroids of 0 and -0.0 where the
+    points make the cross product cancel (q parallel to n2); weights of
+    -0.0, 1e-30 against normals of 1e-10 (subnormal products), p2 equal
+    to its centroid, and -0.0 in q and n2."""
+    from rescan_tpu_torch.ops import icp
+    f32 = np.float32
+
+    def unit(v):
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(f32)
+
+    def t(*xs):
+        return [torch.from_numpy(np.array(x)) for x in xs]
+
+    dist = f32(0.1)
+    scene_pts = rng.normal(size=(m, 3)).astype(f32)
+    scene_nrm = unit(rng.normal(size=(m, 3)))
+    scene_pts[0] = [1e-40, -0.0, 0.0]
+    scene_nrm[1] = [-0.0, 0.0, -1.0]
+    idx = rng.integers(0, m, (b, n)).astype(np.int32)
+    idx[rng.random((b, n)) < 0.2] = -1
+    mask = np.arange(n)[None] < rng.integers(n // 2, n + 1, (b, 1))
+    d2 = (rng.random((b, n)) * dist * dist).astype(f32)
+    dot = rng.uniform(0.5, 1.0, (b, n)).astype(f32)
+    q = rng.normal(size=(b, n, 3)).astype(f32)
+    idx[:, :2] = [-1, 7]
+    mask[:, :6] = [True, False, True, True, True, True]
+    d2[:, 2:4] = [0.0, -0.0]
+    dot[:, 4:6] = [-0.0, 1e-40]
+    if b >= 8:
+        idx[1] = -1
+        q[2] = 2e6
+        idx[2] = -1
+        mask[3] = False
+        d2[4] = d2[4, 0]
+    ops = {icp.HEAD_A: (*t(idx, d2, dot, mask, scene_pts, scene_nrm), dist)}
+    x1, w0, p2, n2 = (v.numpy().copy() for v in
+                      icp._icp_head_ref(icp.HEAD_A, *ops[icp.HEAD_A]))
+    ok = x1[..., 0] > 0
+    s1 = np.stack([ok.sum(1), x1[..., 1].astype(np.float64).sum(1)],
+                  1).astype(f32)
+    if b >= 8:
+        # a count of 0 beside correspondences: the count's floor of 1
+        s1[0] = [0.0, 0.5]
+    ops[icp.HEAD_B] = tuple(t(x1, s1))
+    x2, _ = icp._icp_head_ref(icp.HEAD_B, *ops[icp.HEAD_B])
+    s2 = x2.numpy().astype(np.float64).sum(1).astype(f32)
+    if b >= 8:
+        # std exactly f32(1e-6) and the next float above it, from one
+        # correspondence; then d2 at sigmas * std and a float either side
+        v = f32(np.float64(f32(1e-6)) ** 2)
+        assert np.sqrt(np.float64(v)).astype(f32) == f32(1e-6)
+        s1[5:8] = [[1.0, 0.0]] * 3
+        s2[5:8, 0] = [v, np.nextafter(v * f32(1.01), f32(1)), f32(1e-4)]
+        sd = np.sqrt(np.float64(s2[7, 0])).astype(f32)
+        edge = f32(2.5) * sd
+        x1[7, 6:9] = [[1.0, np.nextafter(edge, f32(0))], [1.0, edge],
+                      [1.0, np.nextafter(edge, f32(1))]]
+        w0[7, 6:9] = 0.5
+    ops[icp.HEAD_C] = tuple(t(x1, w0, s1, s2, q, p2))
+    x3, = (v.numpy().copy() for v in
+           icp._icp_head_ref(icp.HEAD_C, *ops[icp.HEAD_C]))
+    s3 = np.concatenate([x3[..., :1].astype(np.float64).sum(1),
+                         (x3[..., :1] * x3[..., 1:]).astype(np.float64).sum(
+                             1)], 1).astype(f32)
+    x3[:, :40:8, 0] = -0.0
+    x3[:, 8:40:8, 0] = 1e-30
+    n2[:, 8:40:8] = 1e-10
+    n2[:, 16] = [-0.0, 0.0, -0.0]
+    x3[:, 24, 1:4] = -0.0
+    if b >= 8:
+        s3[:7, 0] = [0.0, -0.0, 1e-31, 1e-40, 5e-8, np.nan, 1e-7]
+        s3[0, 1:] = 0.0
+        s3[1, 1:] = -0.0
+        # p = q - 0 parallel to n2: the cross product's products cancel
+        x3[:2, 40:80, 1:4] = n2[:2, 40:80] * rng.uniform(
+            0.5, 2.0, (2, 40, 1)).astype(f32)
+        # p2 at its centroid: p2 - c2 is 0
+        x3[3, :10, 4:7] = s3[3, 4:7] / max(s3[3, 0], f32(1e-30))
+    ops[icp.HEAD_D] = tuple(t(x3, n2, s3))
+    return ops
+
+
 def chain_cases(rng, device="cpu"):
     """fma_chains' shapes on the step's and scoring's operands: the two
     transforms (R broadcast over the points, t added), the cross product
@@ -683,16 +780,12 @@ def _wavy_surface(rng, n):
     return pts, nrm.astype(np.float32)
 
 
-def test_icp_on_card_matches_cpu(cuda):
+def _icp_case():
     """tests/test_torch_icp.py's two-object, 8-pair batch (an
-    ill-conditioned pair among them, a padding pair) through the ICP on
-    the card (K2, pairsum, fma and the tail) and on the CPU (their plain
-    versions): every pose and error bit for bit, the same iteration count
-    and final active set, and one tail launch per iteration in place of
-    the standalone solve and math kernels. Every division by a constant
-    divides by a device tensor (ops/icp.py ``div``), and the rotation's
-    cos and sin are XLA's on both (ops/xla_math.py)."""
-    from rescan_tpu_torch.ops import icp, pairsum
+    ill-conditioned pair among them, a padding pair): the scene's points
+    and normals, then the padded objects, each pair's object and
+    validity, and the start poses."""
+    from rescan_tpu_torch.ops import icp
     rng = np.random.default_rng(12345)
     scene_pts, scene_nrm = _wavy_surface(rng, 2500)
     upts, unrm, umask = icp.prep_unique_batch(
@@ -706,6 +799,20 @@ def test_icp_on_card_matches_cpu(cuda):
         a = 0.002 * (k + 1) ** 2
         T0[k, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
         T0[k, :3, 3] = [0.004 * k, -0.003 * k, 0.0]
+    return scene_pts, scene_nrm, (upts, unrm, umask, own, val), T0
+
+
+def test_icp_on_card_matches_cpu(cuda):
+    """tests/test_torch_icp.py's two-object, 8-pair batch (an
+    ill-conditioned pair among them, a padding pair) through the ICP on
+    the card (K2, pairsum, fma, the head and the tail) and on the CPU
+    (their plain versions): every pose and error bit for bit, the same
+    iteration count and final active set, and per iteration four head
+    launches (one per form) and one tail launch in place of the
+    standalone solve and math kernels. The rotation's cos and sin are
+    XLA's on both (ops/xla_math.py)."""
+    from rescan_tpu_torch.ops import icp, pairsum
+    scene_pts, scene_nrm, objs, T0 = _icp_case()
     out = {}
     for dev in ("cpu", cuda):
         slab = gnn.build_sorted_slab(scene_pts, scene_nrm, tile=1024,
@@ -713,15 +820,17 @@ def test_icp_on_card_matches_cpu(cuda):
         gnn.reset_counts()
         pairsum.reset_counts()
         T, err, act, n_iter = icp.icp_align_indexed(
-            *(torch.from_numpy(a).to(dev) for a in (upts, unrm, umask, own,
-                                                    val)),
+            *(torch.from_numpy(a).to(dev) for a in objs),
             slab, torch.from_numpy(T0).to(dev), 0.10, np.deg2rad(60.0))
         launched = gnn.LAUNCHES["nearest_gated"] and min(
-            pairsum.LAUNCHES[k] for k in ("pairsum", "fma", "icp_tail"))
+            pairsum.LAUNCHES[k] for k in ("pairsum", "fma", "icp_head",
+                                          "icp_tail"))
         assert bool(launched) == (dev != "cpu")
         assert pairsum.LAUNCHES["lu6"] == pairsum.LAUNCHES["xla_math"] == 0
         assert pairsum.LAUNCHES["icp_tail"] == (n_iter if dev != "cpu"
                                                 else 0)
+        assert pairsum.LAUNCHES["icp_head"] == (
+            len(icp.HEAD_FORMS) * n_iter if dev != "cpu" else 0)
         out[str(dev)] = (T.cpu().numpy(), err.cpu().numpy(),
                          act.cpu().numpy(), n_iter)
     (tc, ec, ac, nc), (tg, eg, ag, ng) = out.values()
@@ -729,3 +838,66 @@ def test_icp_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(ag, ac)
     np.testing.assert_array_equal(tg, tc)
     np.testing.assert_array_equal(eg, ec)
+
+
+@pytest.mark.parametrize("b,n", [(1, 128), (8, 1024), (69, 4096)])
+def test_icp_head_kernel_bit_identical_to_plain(cuda, b, n):
+    """icp_head_kernel's four forms (ops/icp.py ``_icp_head`` on the card,
+    one launch each) against ``_icp_head_ref`` on the CPU, bit for bit (a
+    NaN equal to any NaN), on ``icp_head_inputs``' operands and edge
+    rows."""
+    from rescan_tpu_torch.ops import icp, lu6
+    ops = icp_head_inputs(np.random.default_rng(b * n), b, n)
+    pairsum.reset_counts()
+    for form in icp.HEAD_FORMS:
+        want = icp._icp_head_ref(form, *ops[form])
+        got = icp._icp_head(form, *(v.to(cuda) if torch.is_tensor(v) else v
+                                    for v in ops[form]))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
+            g = g.cpu()
+            assert (lu6.same_bits(g, w) if g.is_floating_point()
+                    else torch.equal(g, w)), form
+    assert pairsum.LAUNCHES["icp_head"] == len(icp.HEAD_FORMS)
+    assert pairsum.PLAIN_CALLS["icp_head"] == 0
+
+
+def test_icp_step_makes_no_host_sync(cuda):
+    """One single-device ICP step on the card (the 8-pair batch, after a
+    step that fills the wrappers' caches) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in it makes the
+    host wait on the card (the loop's ``bool(active.any())`` is outside
+    the step), and it runs K2, the four head forms, four rounds of sums
+    and the tail."""
+    from rescan_tpu_torch.ops import icp, search
+    scene_pts, scene_nrm, (upts, unrm, umask, own, val), T0 = _icp_case()
+    slab = gnn.build_sorted_slab(scene_pts, scene_nrm, tile=1024,
+                                 device=cuda)
+    scene_p, scene_n = search.index_arrays(slab)
+    own_t = torch.from_numpy(own).long().to(cuda)
+    args = (torch.from_numpy(upts).to(cuda)[own_t],
+            torch.from_numpy(unrm).to(cuda)[own_t],
+            torch.from_numpy(umask).to(cuda)[own_t]
+            & torch.from_numpy(val).to(cuda)[:, None], slab, scene_p,
+            scene_n)
+    T = torch.from_numpy(T0).to(cuda)
+    err = torch.full((8,), 1e6, device=cuda)
+    active = torch.from_numpy(val).to(cuda)
+    gate = icp.cos_gate_of(np.deg2rad(60.0))
+    dist = np.float32(0.1)
+    state = icp._icp_step(*args, T, err, dist, active, 0, gate)
+    torch.cuda.synchronize()
+    gnn.reset_counts()
+    pairsum.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = icp._icp_step(*args, *state[:2], dist, state[2], 1, gate)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in got[:2])
+    assert gnn.LAUNCHES["nearest_gated"] == 1
+    assert pairsum.LAUNCHES["icp_head"] == len(icp.HEAD_FORMS)
+    assert pairsum.LAUNCHES["pairsum"] == 4
+    assert pairsum.LAUNCHES["icp_tail"] == 1

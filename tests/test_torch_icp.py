@@ -110,13 +110,11 @@ def test_icp_step_matches_jax_slab_engine():
                           np.float32(0.05))
 
 
-@pytest.mark.parametrize("k", [0, 6])
-def test_icp_step_with_split_tail_matches_jax_bit_for_bit(k):
-    """One iteration from JAX's state after k iterations (the first, and
-    the first that tests convergence), both sides on the same slab: the
-    step's tail runs as its own function (``_icp_tail``, here its plain
-    version ``_icp_tail_ref``, once per step), and every pose, error and
-    active flag equals the JAX step's bit for bit."""
+def _step_from_jax_state(k):
+    """One port step from JAX's state after k iterations and the JAX
+    step from the same state, both on the same slab, the port's call
+    counts reset just before its step: ((T, err, active) of the port,
+    the same of JAX)."""
     from rescan_tpu_torch.ops import pairsum
     scene_pts, scene_nrm, (upts, unrm, umask, own, val, T0) = \
         _indexed_case(12345)
@@ -133,21 +131,63 @@ def test_icp_step_with_split_tail_matches_jax_bit_for_bit(k):
                               np.float32(0.05))
     active = np.array(active) if k else umask[own].any(1) & val
     assert active.sum() >= 6
-    jT, jerr, jact = (np.asarray(x) for x in jicp.icp_align_indexed(
+    want = tuple(np.asarray(x) for x in jicp.icp_align_indexed(
         *jargs, T, dist, MAX_ANGLE, max_iter=k + 1, err_init=err,
         it_init=k))
     scene_p, scene_n = tsearch.index_arrays(slab)
     pairsum.reset_counts()
-    tT, terr, tact = ticp._icp_step(
+    got = ticp._icp_step(
         torch.from_numpy(upts)[own], torch.from_numpy(unrm)[own],
         torch.from_numpy(umask)[own] & torch.from_numpy(val)[:, None], slab,
         scene_p, scene_n, torch.from_numpy(np.array(T)),
         torch.from_numpy(np.array(err)), dist, torch.from_numpy(active), k,
         ticp.cos_gate_of(MAX_ANGLE))
+    return tuple(v.numpy() for v in got), want
+
+
+@pytest.mark.parametrize("k", [0, 6])
+def test_icp_step_with_split_tail_matches_jax_bit_for_bit(k):
+    """One iteration from JAX's state after k iterations (the first, and
+    the first that tests convergence), both sides on the same slab: the
+    step's tail runs as its own function (``_icp_tail``, here its plain
+    version ``_icp_tail_ref``, once per step), and every pose, error and
+    active flag equals the JAX step's bit for bit."""
+    from rescan_tpu_torch.ops import pairsum
+    got, want = _step_from_jax_state(k)
     assert pairsum.PLAIN_CALLS["icp_tail"] == 1
-    np.testing.assert_array_equal(tT.numpy(), jT)
-    np.testing.assert_array_equal(terr.numpy(), jerr)
-    np.testing.assert_array_equal(tact.numpy(), jact)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [0, 6])
+def test_icp_step_with_split_head_matches_jax_bit_for_bit(k, monkeypatch):
+    """The same step with its head split: the per-point work between the
+    rounds of sums runs as ``_icp_head``'s four forms in order (here the
+    plain version ``_icp_head_ref``, each once per step), every form's
+    operands and outputs are of the shapes the kernel takes, and every
+    pose, error and active flag equals the JAX step's bit for bit."""
+    from rescan_tpu_torch.ops import pairsum
+    forms = []
+    real = ticp._icp_head
+
+    def spy(form, *args):
+        out = real(form, *args)
+        forms.append(form)
+        dims = {"B": args[0].shape[0], "N": args[0].shape[1],
+                "M": args[4].shape[0] if form == ticp.HEAD_A else 0}
+        ops = args[:len(ticp._HEAD_OPERANDS[form])]
+        for v, (shape, dtype) in zip(ops + out, ticp._HEAD_OPERANDS[form]
+                                     + ticp._HEAD_OUTPUTS[form]):
+            assert tuple(v.shape) == tuple(dims.get(d, d) for d in shape)
+            assert v.dtype == dtype
+        return out
+
+    monkeypatch.setattr(ticp, "_icp_head", spy)
+    got, want = _step_from_jax_state(k)
+    assert forms == list(ticp.HEAD_FORMS)
+    assert pairsum.PLAIN_CALLS["icp_head"] == len(ticp.HEAD_FORMS)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_indexed_icp_matches_jax_slab_engine():

@@ -18,8 +18,8 @@ from rescan_tpu_torch.ops import icp as ticp, lu6, pairsum, xla_math
 from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
                                           FOLDED, FOLDED_TAIL, LANES,
                                           LANES_TAIL, ONE, WINDOW)
-from test_torch_cuda import (chain_cases, icp_tail_inputs, lu6_systems,
-                             score_inputs, xla_math_args)
+from test_torch_cuda import (chain_cases, icp_head_inputs, icp_tail_inputs,
+                             lu6_systems, score_inputs, xla_math_args)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = os.path.join(HERE, "data", "torch_port_emu_cuda.h")
@@ -204,12 +204,16 @@ def test_rotation_trig_against_xla():
 
 def _emulated_source() -> str:
     """pairsum.cu with the emulation header, each launch a loop over
-    blocks of real threads that meet at __syncthreads."""
+    blocks of real threads that meet at __syncthreads (a kernel whose
+    threads never meet: every thread in turn on the calling thread)."""
     with open(pairsum._SRC) as f:
         s = f.read()
     launch = ("#define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...) "
               "do { (void)(stream); emulate_block_launch((blocks), (threads), "
-              "[&] { kernel(__VA_ARGS__); }); } while (0)")
+              "[&] { kernel(__VA_ARGS__); }); } while (0)\n"
+              "#define PAIRSUM_LAUNCH_FREE(kernel, blocks, threads, stream, "
+              "...) do { (void)(stream); emulate_serial_launch((blocks), "
+              "(threads), [&] { kernel(__VA_ARGS__); }); } while (0)")
     a = "#include <cuda_runtime.h>"
     assert s.count(a) == 1 and "#ifndef PAIRSUM_LAUNCH" in s
     return s.replace(a, f'#include "{HEADER}"\n{launch}')
@@ -410,3 +414,25 @@ def test_emulated_icp_tail_matches_plain(emu, b, it):
         x = torch.where(torch.isfinite(s4[:14, 36:39]), -s4[:14, 36:39]
                         / 0.01, 0.0)
         assert x[12].abs().max() > 1e19
+
+
+@pytest.mark.parametrize("n", [128, 1024, 4096])
+@pytest.mark.parametrize("b", [1, 8, 69])
+def test_emulated_icp_head_matches_plain(emu, b, n):
+    """icp_head_kernel's four forms against ops/icp.py ``_icp_head_ref``
+    bit for bit (a NaN equal to any NaN) on ``icp_head_inputs``' operands
+    and edge rows (idx -1, masked points, d2 of 0 and -0.0, pairs with
+    no correspondence, inactive at 2e6, all masked, std 0, f32(1e-6) and
+    just above, d2 at 2.5 std and either side, weight totals of 0, -0.0,
+    below the floor, subnormal, below 1e-7 and NaN, cancelling and
+    subnormal products, negative zeros), the raw counts equal."""
+    ops = icp_head_inputs(np.random.default_rng(b * n), b, n)
+    for form in ticp.HEAD_FORMS:
+        want = ticp._icp_head_ref(form, *ops[form])
+        _, got, cargs = ticp.head_operands(form, *ops[form])
+        assert emu.icp_head_run(*cargs, None) == 0
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, form
+            assert (lu6.same_bits(g, w) if g.is_floating_point()
+                    else torch.equal(g, w)), form

@@ -19,12 +19,17 @@ the warm-up run) into the step's parts, replayed on the same inputs:
 ``k2`` (the gated nearest-neighbour search), ``sums`` (the four rounds of
 per-pair sums), ``tail`` (everything after the fourth round), ``head``
 (the rest of the step: the transforms, weights, rejection and the
-operands of the sums) and ``loop`` (outside the steps: the start mask,
-each iteration's ``bool(active.any())`` wait and the annealing). One
-replay gives host wall milliseconds per iteration by part (host clock at
-the part boundaries, no synchronisation added); a second, under
+operands of the sums, where the ``icp_head`` kernel's launches fall) and
+``loop`` (outside the steps: the start mask, each iteration's
+``bool(active.any())`` wait and the annealing). One replay gives host
+wall milliseconds per iteration by part (host clock at the part
+boundaries, no synchronisation added) and, where the package counts
+them, the ``icp_head`` launches per iteration; a second, under
 torch.profiler with a range per part, gives device-busy milliseconds and
 device operations (kernels and copies) per iteration, in all and by
+part; a third, under ``torch.cuda.set_sync_debug_mode("warn")``, counts
+the host's waits on the card (the synchronising calls PyTorch warns of:
+a blocking copy, ``item()``, a synchronise) per iteration, in all and by
 part. Works on any version of the port that has ``ops.icp._icp_step``,
 ``ops.search.nearest_gated`` and ``ops.pairsum.sums``.
 """
@@ -40,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -231,16 +237,67 @@ def _device_split(events, prefix: str) -> dict:
             "ops_by_part": ops, "ms_by_part": ms}
 
 
+class _Waits:
+    """The host's waits on the card by part: a stack of the parts the host
+    is in (``mark``), and each synchronising call that PyTorch warns of
+    under sync debug mode "warn" given to the innermost one (the step
+    holds the other three; its own share is the head's)."""
+
+    def __init__(self):
+        self.stack = []
+        self.count = dict.fromkeys(PARTS + ("loop",), 0)
+
+    @contextlib.contextmanager
+    def mark(self, name):
+        self.stack.append(name)
+        try:
+            yield
+        finally:
+            self.stack.remove(name)
+
+    def show(self, message, *_):
+        if "synchroniz" not in str(message):
+            return
+        inner = [p for p in self.stack if p != "step"]
+        self.count[inner[-1] if inner else
+                   "head" if self.stack else "loop"] += 1
+
+
+def _count_waits(call) -> dict:
+    """One instrumented run of ``call`` under sync debug mode "warn" (set
+    around the call alone): the waits by part (``_Waits``)."""
+    import torch
+    waits = _Waits()
+    acc = dict.fromkeys(("step", "k2", "sums", "tail", "iterations"), 0)
+    undo = _instrumented(acc, waits.mark)
+    try:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = waits.show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    return waits.count
+
+
 def icp_split(args, kwargs) -> dict:
     """The icp_refine call's split by part (see the module docstring)."""
     import torch
-    from rescan_tpu_torch.ops import icp
+    from rescan_tpu_torch.ops import icp, pairsum
 
     def call():
         return icp.icp_align_indexed(*args, **kwargs)
 
     call()                                     # warm
+    heads = pairsum.LAUNCHES.get("icp_head", 0)
     host = _replay(call, lambda name: contextlib.nullcontext())
+    heads = pairsum.LAUNCHES.get("icp_head", 0) - heads
     n = host["iterations"]
     prefix = "icp_split::"
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -249,6 +306,7 @@ def icp_split(args, kwargs) -> dict:
         prof_host = _replay(call, lambda name: torch.profiler.record_function(
             prefix + name))
     split = _device_split(prof.profiler.kineto_results.events(), prefix)
+    waits = _count_waits(call)
     return {
         "pairs": int(args[3].shape[0]), "iterations": n,
         "wall_ms_per_iter": host["wall"] * 1e3 / n,
@@ -261,6 +319,9 @@ def icp_split(args, kwargs) -> dict:
                                        split["ms_by_part"].items()},
         "device_ops_per_iter_by_part": {p: v / n for p, v in
                                         split["ops_by_part"].items()},
+        "icp_head_launches_per_iter": heads / n,
+        "waits_per_iter": sum(waits.values()) / n,
+        "waits_per_iter_by_part": {p: v / n for p, v in waits.items()},
         "profiled_wall_ms_per_iter": prof_host["wall"] * 1e3 / n,
         "profiled_iterations": prof_host["iterations"]}
 
