@@ -12,8 +12,9 @@ result lines:
              scoring's per-point terms and the ICP step's head and tail),
              from this checkout's sources, the three
              compilers started together; ptxas's report and, per gated-NN
-             instantiation, its residency (CTAs per SM by the occupancy
-             calculator, registers, shared and local bytes); fails unless
+             instantiation and ICP head form, its residency (CTAs per SM
+             by the occupancy calculator, registers, shared and local
+             bytes); fails unless
              ptxas gives every instantiation of icp_head_kernel,
              icp_tail_kernel and lu6_kernel a 0-byte stack frame and no
              spills (every value in registers);
@@ -63,7 +64,8 @@ result lines:
              yardstick; the head and the tail beside the launch floor, an
              empty kernel; the tail beside torch.linalg.solve_ex of its
              systems; the head's plain version on CPU copies of its
-             operands); the standalone lu6 and XLA-math kernels,
+             operands, each form beside its byte bound, its shared memory
+             and its residency); the standalone lu6 and XLA-math kernels,
              whose device functions the tail runs, on the tail launches'
              systems and angles, held and measured alike; the rescan's
              distance from the slab run, the fma-family launches, and the
@@ -308,6 +310,13 @@ def phase_build() -> None:
             if use["stack"] or use["spill_stores"] or use["spill_loads"]:
                 raise SystemExit(f"[build] FAIL {name}: not "
                                  f"register-resident ({use})")
+    from rescan_tpu_torch.ops import icp
+    for form in icp.HEAD_FORMS:
+        i = icp.head_info(form, torch.device("cuda", 0))
+        say("build", f"icp_head_kernel form {'ABCD'[form]}: "
+            f"{i['ctas_per_sm']} CTAs per SM (occupancy calculator); "
+            f"{i['registers']} registers, {i['shared_bytes']} B shared a "
+            f"CTA, {i['local_bytes']} B local")
     # what would cap the CTAs per SM, each alone, on an H100: 65,536
     # registers (allocated per warp in units of 256), 228 KiB of shared
     # memory (1 KiB of it reserved per CTA), 32 CTA slots
@@ -1197,6 +1206,18 @@ def _head_bytes(form: int, args, outs) -> int:
     return sum(v.numel() * v.element_size() for v in ops + list(outs))
 
 
+def head_bound(form: int, args, outs) -> tuple:
+    """(bound ms, what sets it, bytes) of one ICP head form's launch: the
+    larger of its bytes (``_head_bytes``) over the memory rate and its
+    FP32 operations (``HEAD_FLOPS``) over the FP32 rate."""
+    b, n = args[0].shape[:2]
+    n_bytes = _head_bytes(form, args, outs)
+    bound, by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (HEAD_FLOPS[form] * b * n / FP32_FLOP_PER_S * 1e3,
+                     "operations"))
+    return bound, by, n_bytes
+
+
 def _head_row(calls, floor: float) -> dict:
     """Phase 5's ICP head launches (the first of every form and shape),
     each held bit for bit (a NaN equal to any NaN) to
@@ -1228,17 +1249,16 @@ def _head_row(calls, floor: float) -> dict:
         args = max(mine, key=lambda c: c[1].shape[0] * c[1].shape[1])[1:]
         cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
         b, n = args[0].shape[:2]
-        n_bytes = _head_bytes(form, args, icp._icp_head(form, *args))
-        bound, by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (HEAD_FLOPS[form] * b * n / FP32_FLOP_PER_S * 1e3,
-                         "operations"))
+        bound, by, n_bytes = head_bound(form, args,
+                                        icp._icp_head(form, *args))
         ms = kernel_ms(lambda f=form, a=args: icp._icp_head(f, *a),
                        "icp_head")
         forms["ABCD"[form]] = {
             "pairs": b, "points": n, "ms": ms, "timing": TIMING,
             "plain_ms": host_ms(lambda f=form, a=cpu: icp._icp_head_ref(
                 f, *a), 3), "bytes": n_bytes, "bound_ms": bound,
-            "bound_by": by, "share_of_bound": bound / ms}
+            "bound_by": by, "share_of_bound": bound / ms,
+            **icp.head_info(form, args[0].device)}
     row = {"ms": sum(f["ms"] for f in forms.values()), "timing": TIMING,
            "plain_ms": sum(f["plain_ms"] for f in forms.values()),
            "plain_on": "cpu (host clock): the plain version takes no CUDA "
@@ -1254,8 +1274,10 @@ def _head_row(calls, floor: float) -> dict:
         f"largest launch ({forms['A']['pairs']} pairs x "
         f"{forms['A']['points']} points) " + "; ".join(
             f"form {k} {f['ms']:.5f} ms (bound {f['bound_ms']:.5f} ms, "
-            f"{f['bound_by']}, {f['bytes']} B; plain on the CPU "
-            f"{f['plain_ms']:.3f} ms)" for k, f in forms.items())
+            f"{f['bound_by']}, {f['bytes']} B, share {f['share_of_bound']:.3f}"
+            f"; {f['shared_bytes']} B shared a CTA, {f['ctas_per_sm']} CTAs "
+            f"per SM; plain on the CPU {f['plain_ms']:.3f} ms)"
+            for k, f in forms.items())
         + f"; the four {row['ms']:.5f} ms against a bound of "
         f"{row['bound_ms']:.5f} ms and four launch floors of "
         f"{4 * floor:.5f} ms")

@@ -70,11 +70,6 @@ using SmallSum = SumShape<64, 256, 4, 4, 10>;
 #define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...)                  \
   kernel<<<(blocks), (threads), 0, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
 #endif
-// the same for a kernel whose threads never meet (no barrier, shared
-// memory or warp collective), which a host build may run one by one
-#ifndef PAIRSUM_LAUNCH_FREE
-#define PAIRSUM_LAUNCH_FREE PAIRSUM_LAUNCH
-#endif
 
 template <bool ADD>
 __device__ __forceinline__ float step(float a, float b, float acc) {
@@ -742,11 +737,29 @@ icp_tail_kernel(const float* __restrict__ s4, int s4_ld, const float* __restrict
 //     c2 the centroids, p = q - c1, d = p - (p2 - c2), p x n2 as
 //     fma(a, b, -(c * d)), ddn = (d0 n0 + d1 n1) + d2 n2, j6 = [p x n2, n2];
 //     round 4's operands [w j6, j6, ddn, w, ddn^2]; c1 for the tail.
-// A thread a point; a pair's scalars (from the round before) are
-// recomputed by each of its threads from the same few totals, so nothing
-// is shared and no thread waits on another (a host build may run the
-// threads one by one). Bound: bytes, at most ~100 a point (HEAD_D reads
-// 40 and writes 60); every select gives +0.0, as torch.where does.
+// Bound: bytes, at most ~100 a point (HEAD_D reads 40 and writes 60), so
+// the design moves them in whole sectors. A CTA takes a tile of THREADS
+// consecutive points, a thread a point. The tile's rows of 3, 7 and 15
+// floats are contiguous runs (1,536, 3,584 and 7,680 bytes at 16-byte
+// aligned starts), which the CTA copies between device and shared memory
+// as float4s, neighbouring threads on neighbouring 16 bytes; each thread
+// reads its point's rows from shared memory and writes its output row
+// there (rows of 3, 7 and 15 words: no bank conflict); rows of one word
+// are read and written in place, already coalesced. Every path launch has
+// N a multiple of the tile (pad_batch's powers of two >= 128, sp shards of
+// >= 512 points), so a tile lies in one pair, found from the tile's index;
+// a tile that spans pairs or ends a launch part full finds each point's
+// pair as i / n. Each thread of B and C forms its pair's scalars (B: the
+// count and mean; C: the std and sigmas * std) from the totals, whose
+// loads are one broadcast for its warp; D's centroids (six divisions) are
+// formed once a tile by thread 0 into shared memory before the barrier the
+// staging needs, where the tile lies in one pair, else by each thread with
+// the same function (on an H100 at 69 x 8,192 points, D took 4 % longer
+// with its centroids formed in every thread, and C 1 % longer with its
+// scalars formed once a tile; PERF.md). A pair's first point writes B's
+// count and D's c1. B stages nothing and meets no barrier. Every select gives +0.0, as
+// torch.where does. Form A's gathers of scene rows stay a thread's own
+// loads (the ICP's scene, ~2.4 MB, lies in L2).
 // ---------------------------------------------------------------------------
 
 constexpr int HEAD_A = 0, HEAD_B = 1, HEAD_C = 2, HEAD_D = 3;
@@ -762,6 +775,14 @@ struct HeadIo {
 struct HeadConsts {
   float dist, wsum_floor, std_floor, sigmas;
 };
+// per form, the floats a point stages in and out through shared memory
+// (C: q, p2; D: the round-3 row, n2 | A: x1, p2, n2; C: x3; D: x4)
+__host__ __device__ constexpr int head_stage_in(int form) {
+  return form == HEAD_C ? 3 + 3 : form == HEAD_D ? 7 + 3 : 0;
+}
+__host__ __device__ constexpr int head_stage_out(int form) {
+  return form == HEAD_A ? 2 + 3 + 3 : form == HEAD_C ? 7 : form == HEAD_D ? 15 : 0;
+}
 
 __device__ __forceinline__ const float* fin(const HeadIo& io, int k) {
   return static_cast<const float*>(io.in[k]);
@@ -779,78 +800,176 @@ __device__ __forceinline__ float count_div(const float* s1, long long b) {
   return static_cast<float>(c < 1 ? 1 : c);
 }
 
+// a pair's scalars for one form, from the totals of the round before
+struct HeadPair {
+  float v[6];     // B: the mean; C: the std, sigmas * std; D: c1, c2
+  long long cnt;  // B: round 1's raw count
+};
+
 template <int FORM>
-__global__ void __launch_bounds__(THREADS)
-icp_head_kernel(const HeadIo io, long long total, int n, const HeadConsts k) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= total) return;
-  const long long b = i / n;
-  const bool first = i - b * n == 0;
-  if (FORM == HEAD_A) {
-    const int id = static_cast<const int*>(io.in[0])[i];
-    const bool ok = id >= 0 && static_cast<const uint8_t*>(io.in[3])[i] != 0;
-    const long long r = id < 0 ? 0 : id;
-    const float d2 = fin(io, 1)[i], dot = fin(io, 2)[i];
-    float* x1 = fout(io, 0);
-    x1[2 * i] = ok ? 1.0f : 0.0f;
-    x1[2 * i + 1] = ok ? d2 : 0.0f;
-    fout(io, 1)[i] = ok ? __fmul_rn(__fsub_rn(1.0f, __fdiv_rn(d2, k.dist)), dot) : 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      fout(io, 2)[3 * i + c] = fin(io, 4)[3 * r + c];
-      fout(io, 3)[3 * i + c] = fin(io, 5)[3 * r + c];
-    }
-  } else if (FORM == HEAD_B) {
-    const float* x1 = fin(io, 0);
+__device__ __forceinline__ HeadPair head_pair(const HeadIo& io, long long b,
+                                              const HeadConsts& k) {
+  HeadPair p{};
+  if constexpr (FORM == HEAD_B) {
     const float* s1 = fin(io, 1);
-    const float mean = __fdiv_rn(s1[b * 2 + 1], count_div(s1, b));
-    const float dev = __fsub_rn(x1[2 * i + 1], mean);
-    fout(io, 0)[i] = x1[2 * i] != 0.0f ? __fmul_rn(dev, dev) : 0.0f;
-    if (first) static_cast<long long*>(io.out[1])[b] = count_of(s1, b);
-  } else if (FORM == HEAD_C) {
-    const float* x1 = fin(io, 0);
-    const float* s1 = fin(io, 2);
-    const float sd = __fsqrt_rn(__fdiv_rn(fin(io, 3)[b], count_div(s1, b)));
-    const bool keep = sd <= k.std_floor || x1[2 * i + 1] <= __fmul_rn(k.sigmas, sd);
-    float* x3 = fout(io, 0) + 7 * i;
-    x3[0] = keep ? fin(io, 1)[i] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      x3[1 + c] = fin(io, 4)[3 * i + c];
-      x3[4 + c] = fin(io, 5)[3 * i + c];
-    }
-  } else {
-    const float* x3 = fin(io, 0) + 7 * i;
-    const float* nr = fin(io, 1) + 3 * i;
+    p.cnt = count_of(s1, b);
+    p.v[0] = __fdiv_rn(s1[b * 2 + 1], count_div(s1, b));
+  } else if constexpr (FORM == HEAD_C) {
+    const float sd = __fsqrt_rn(__fdiv_rn(fin(io, 3)[b], count_div(fin(io, 2), b)));
+    p.v[0] = sd;
+    p.v[1] = __fmul_rn(k.sigmas, sd);
+  } else if constexpr (FORM == HEAD_D) {
     const float* s3 = fin(io, 2) + 7 * b;
     const float wsum = s3[0];
     const float wsafe = wsum < k.wsum_floor ? k.wsum_floor : wsum;  // a NaN stays
-    float p[3], d[3], nv[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float c1 = __fdiv_rn(s3[1 + c], wsafe);
-      const float c2 = __fdiv_rn(s3[4 + c], wsafe);
-      p[c] = __fsub_rn(x3[1 + c], c1);
-      d[c] = __fsub_rn(p[c], __fsub_rn(x3[4 + c], c2));
-      nv[c] = nr[c];
-      if (first) fout(io, 1)[3 * b + c] = c1;
+      p.v[c] = __fdiv_rn(s3[1 + c], wsafe);
+      p.v[3 + c] = __fdiv_rn(s3[4 + c], wsafe);
     }
-    const float w = x3[0];
-    const float ddn = __fadd_rn(__fadd_rn(__fmul_rn(d[0], nv[0]), __fmul_rn(d[1], nv[1])),
-                                __fmul_rn(d[2], nv[2]));
-    const float j6[6] = {__fmaf_rn(p[1], nv[2], -__fmul_rn(p[2], nv[1])),
-                         __fmaf_rn(p[2], nv[0], -__fmul_rn(p[0], nv[2])),
-                         __fmaf_rn(p[0], nv[1], -__fmul_rn(p[1], nv[0])),
-                         nv[0], nv[1], nv[2]};
-    float* x4 = fout(io, 0) + 15 * i;
+  }
+  return p;
+}
+
+// what a pair's first point writes: B's raw count, D's c1
+template <int FORM>
+__device__ __forceinline__ void head_pair_out(const HeadIo& io, long long b,
+                                              const HeadPair& p) {
+  if constexpr (FORM == HEAD_B) static_cast<long long*>(io.out[1])[b] = p.cnt;
+  if constexpr (FORM == HEAD_D) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      x4[c] = __fmul_rn(w, j6[c]);
-      x4[6 + c] = j6[c];
+    for (int c = 0; c < 3; ++c) fout(io, 1)[3 * b + c] = p.v[c];
+  }
+}
+
+// point i's pair: from the tile's index where a tile lies in one pair (N a
+// multiple of the tile, every path launch), else i / n
+__device__ __forceinline__ long long pair_of(long long i, int n) {
+  return n % THREADS == 0 ? blockIdx.x / static_cast<unsigned>(n / THREADS) : i / n;
+}
+
+// count floats from src to dst by the CTA's threads, neighbours on
+// neighbouring float4s, the last count % 4 a float each (both 16-byte
+// aligned: ops/icp.py ``head_operands`` copies an operand that is not)
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int count) {
+  const int n4 = count / 4;
+  for (int j = threadIdx.x; j < n4; j += THREADS)
+    reinterpret_cast<float4*>(dst)[j] = reinterpret_cast<const float4*>(src)[j];
+  for (int j = n4 * 4 + threadIdx.x; j < count; j += THREADS) dst[j] = src[j];
+}
+
+template <int FORM>
+__global__ void __launch_bounds__(THREADS)
+icp_head_kernel(const HeadIo io, long long total, int n, const HeadConsts k) {
+  constexpr int W_IN = head_stage_in(FORM), W_OUT = head_stage_out(FORM);
+  __shared__ __align__(16) float s_in[THREADS * (W_IN ? W_IN : 1)];
+  __shared__ __align__(16) float s_out[THREADS * (W_OUT ? W_OUT : 1)];
+  __shared__ HeadPair s_pair;  // D, where a tile lies in one pair: its centroids
+  const int t = threadIdx.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * THREADS;
+  const int pts = static_cast<int>(min(static_cast<long long>(THREADS), total - i0));
+  const long long i = i0 + t;
+  const bool live = t < pts;
+  const bool one_pair = n % THREADS == 0;
+  // a thread's own one-word operands, loaded before the barrier (B: ok and
+  // d2 of round 1's operands; C: d2 and w0)
+  float own0 = 0.0f, own1 = 0.0f;
+  if constexpr (FORM == HEAD_B) {
+    if (live) {
+      own0 = fin(io, 0)[2 * i];
+      own1 = fin(io, 0)[2 * i + 1];
     }
-    x4[12] = ddn;
-    x4[13] = w;
-    x4[14] = __fmul_rn(ddn, ddn);
+  } else if constexpr (FORM == HEAD_C) {
+    copy_tile(s_in, fin(io, 4) + 3 * i0, 3 * pts);
+    copy_tile(s_in + 3 * THREADS, fin(io, 5) + 3 * i0, 3 * pts);
+    if (live) {
+      own0 = fin(io, 0)[2 * i + 1];
+      own1 = fin(io, 1)[i];
+    }
+    __syncthreads();
+  } else if constexpr (FORM == HEAD_D) {
+    if (one_pair && t == 0) {
+      const unsigned tiles = n / THREADS;
+      const long long b = blockIdx.x / tiles;
+      s_pair = head_pair<HEAD_D>(io, b, k);
+      if (blockIdx.x % tiles == 0) head_pair_out<HEAD_D>(io, b, s_pair);
+    }
+    copy_tile(s_in, fin(io, 0) + 7 * i0, 7 * pts);
+    copy_tile(s_in + 7 * THREADS, fin(io, 1) + 3 * i0, 3 * pts);
+    __syncthreads();
+  }
+  if (live) {
+    if constexpr (FORM == HEAD_A) {
+      const int id = static_cast<const int*>(io.in[0])[i];
+      const bool ok = id >= 0 && static_cast<const uint8_t*>(io.in[3])[i] != 0;
+      const long long r = id < 0 ? 0 : id;
+      const float d2 = fin(io, 1)[i], dot = fin(io, 2)[i];
+      s_out[2 * t] = ok ? 1.0f : 0.0f;
+      s_out[2 * t + 1] = ok ? d2 : 0.0f;
+      fout(io, 1)[i] = ok ? __fmul_rn(__fsub_rn(1.0f, __fdiv_rn(d2, k.dist)), dot) : 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        s_out[2 * THREADS + 3 * t + c] = fin(io, 4)[3 * r + c];
+        s_out[5 * THREADS + 3 * t + c] = fin(io, 5)[3 * r + c];
+      }
+    } else {
+      HeadPair pr;
+      if (FORM == HEAD_D && one_pair) {
+        pr = s_pair;
+      } else {
+        const long long b = pair_of(i, n);
+        pr = head_pair<FORM>(io, b, k);
+        if (i == b * n) head_pair_out<FORM>(io, b, pr);
+      }
+      if constexpr (FORM == HEAD_B) {
+        const float dev = __fsub_rn(own1, pr.v[0]);
+        fout(io, 0)[i] = own0 != 0.0f ? __fmul_rn(dev, dev) : 0.0f;
+      } else if constexpr (FORM == HEAD_C) {
+        const bool keep = pr.v[0] <= k.std_floor || own0 <= pr.v[1];
+        float* x3 = s_out + 7 * t;
+        x3[0] = keep ? own1 : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          x3[1 + c] = s_in[3 * t + c];
+          x3[4 + c] = s_in[3 * THREADS + 3 * t + c];
+        }
+      } else {
+        const float* x3 = s_in + 7 * t;
+        const float* nr = s_in + 7 * THREADS + 3 * t;
+        float p[3], d[3], nv[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          p[c] = __fsub_rn(x3[1 + c], pr.v[c]);
+          d[c] = __fsub_rn(p[c], __fsub_rn(x3[4 + c], pr.v[3 + c]));
+          nv[c] = nr[c];
+        }
+        const float w = x3[0];
+        const float ddn = __fadd_rn(__fadd_rn(__fmul_rn(d[0], nv[0]), __fmul_rn(d[1], nv[1])),
+                                    __fmul_rn(d[2], nv[2]));
+        const float j6[6] = {__fmaf_rn(p[1], nv[2], -__fmul_rn(p[2], nv[1])),
+                             __fmaf_rn(p[2], nv[0], -__fmul_rn(p[0], nv[2])),
+                             __fmaf_rn(p[0], nv[1], -__fmul_rn(p[1], nv[0])),
+                             nv[0], nv[1], nv[2]};
+        float* x4 = s_out + 15 * t;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) {
+          x4[c] = __fmul_rn(w, j6[c]);
+          x4[6 + c] = j6[c];
+        }
+        x4[12] = ddn;
+        x4[13] = w;
+        x4[14] = __fmul_rn(ddn, ddn);
+      }
+    }
+  }
+  if constexpr (FORM == HEAD_A) {
+    __syncthreads();
+    copy_tile(fout(io, 0) + 2 * i0, s_out, 2 * pts);
+    copy_tile(fout(io, 2) + 3 * i0, s_out + 2 * THREADS, 3 * pts);
+    copy_tile(fout(io, 3) + 3 * i0, s_out + 5 * THREADS, 3 * pts);
+  } else if constexpr (FORM != HEAD_B) {
+    __syncthreads();
+    copy_tile(fout(io, 0) + W_OUT * i0, s_out, W_OUT * pts);
   }
 }
 
@@ -924,7 +1043,7 @@ template <int FORM>
 int icp_head_launch(const HeadIo& io, long long total, int n, const HeadConsts& k,
                     void* stream) {
   const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
-  PAIRSUM_LAUNCH_FREE(icp_head_kernel<FORM>, blocks, THREADS, stream, io, total, n, k);
+  PAIRSUM_LAUNCH(icp_head_kernel<FORM>, blocks, THREADS, stream, io, total, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,6 +1066,26 @@ extern "C" int icp_head_run(int form, const void* const* in, void* const* out,
     case HEAD_D: return icp_head_launch<HEAD_D>(io, total, n, k, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// residency of one icp_head_kernel form: CTAs per SM (the occupancy
+// calculator), registers, static shared and local bytes into out[0..3]
+extern "C" int icp_head_info(int form, int* out) {
+  const void* fn = form == HEAD_A   ? (const void*)icp_head_kernel<HEAD_A>
+                   : form == HEAD_B ? (const void*)icp_head_kernel<HEAD_B>
+                   : form == HEAD_C ? (const void*)icp_head_kernel<HEAD_C>
+                   : form == HEAD_D ? (const void*)icp_head_kernel<HEAD_D>
+                                    : nullptr;
+  if (!fn) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, THREADS, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 // one launch of a kernel that does nothing (the launch floor)

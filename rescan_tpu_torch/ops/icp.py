@@ -224,9 +224,9 @@ def _icp_head(form: int, *args) -> tuple:
       4's operands (B, N, 15) and the centroid c1 (B, 3).
 
     On CUDA tensors one ``icp_head_kernel`` launch (csrc/pairsum.cu, a
-    thread a point); on CPU tensors ``_icp_head_ref``, which it equals bit
-    for bit. K2's indices must lie below the scene's rows (the kernel
-    gathers without a check)."""
+    CTA per tile of 128 points); on CPU tensors ``_icp_head_ref``, which
+    it equals bit for bit. K2's indices must lie below the scene's rows
+    (the kernel gathers without a check)."""
     if not args[0].is_cuda:
         pairsum._count(pairsum.PLAIN_CALLS, "icp_head")
         return _icp_head_ref(form, *args)
@@ -238,9 +238,9 @@ def _icp_head(form: int, *args) -> tuple:
 
 def head_operands(form: int, *args) -> tuple:
     """(operands, outputs, C arguments of ``icp_head_run`` but the stream)
-    of one ``_icp_head`` launch: the operands checked and made contiguous
-    (keep them alive through the call), the outputs allocated beside
-    them."""
+    of one ``_icp_head`` launch: the operands checked, made contiguous and
+    16-byte aligned (the kernel copies its tiles as float4s; keep them
+    alive through the call), the outputs allocated beside them."""
     n_ops = len(_HEAD_OPERANDS[form])
     ops = args[:n_ops]
     B, N = ops[0].shape[:2]
@@ -257,6 +257,7 @@ def head_operands(form: int, *args) -> tuple:
                 f"{tuple(v.shape)} {v.dtype} {v.device}" if torch.is_tensor(
                     v) else repr(v) for v in args))
     ops = tuple(v.contiguous() for v in ops)
+    ops = tuple(v if v.data_ptr() % 16 == 0 else v.clone() for v in ops)
     outs = tuple(torch.empty(tuple(dims.get(d, d) for d in shape),
                              dtype=dtype, device=ops[0].device)
                  for shape, dtype in _HEAD_OUTPUTS[form])
@@ -266,6 +267,20 @@ def head_operands(form: int, *args) -> tuple:
              *(float(np.float32(v)) for v in (dist, _WSUM_FLOOR, _STD_FLOOR,
                                                _SIGMAS)))
     return ops, outs, cargs
+
+
+def head_info(form: int, device) -> dict:
+    """Residency of one ``icp_head_kernel`` form on the CUDA ``device``:
+    CTAs per SM by the occupancy calculator, registers per thread, static
+    shared bytes per CTA, local (spill) bytes per thread."""
+    lib = pairsum.load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = lib.icp_head_info(int(form), out)
+    if rc != 0:
+        raise RuntimeError(f"icp_head: kernel info failed, cudaError {rc}")
+    return dict(zip(("ctas_per_sm", "registers", "shared_bytes",
+                     "local_bytes"), out))
 
 
 def _icp_head_ref(form: int, *args) -> tuple:

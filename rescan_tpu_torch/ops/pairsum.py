@@ -628,8 +628,8 @@ def load_library():
 
 
 def bind(lib):
-    """Declare the C signatures of the library's ``*_run`` functions on a
-    loaded library."""
+    """Declare the C signatures of the library's ``*_run`` functions and
+    ``icp_head_info`` on a loaded library."""
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     for name, args in (
@@ -646,6 +646,8 @@ def bind(lib):
         fn = getattr(lib, f"{name}_run")
         fn.restype = ctypes.c_int
         fn.argtypes = args + [vp]
+    lib.icp_head_info.restype = ctypes.c_int
+    lib.icp_head_info.argtypes = [i32, ctypes.POINTER(i32)]
     return lib
 
 

@@ -3,20 +3,25 @@
 // be built with g++ and run on the CPU (tests/test_torch_gnn_emulated.py,
 // tests/test_torch_pairsum.py). In emulate_launch a block is one warp: 32
 // std::threads that meet at a barrier for every warp collective; in
-// emulate_block_launch a block is any number of std::threads that meet at
-// a barrier for every __syncthreads (warp collectives only in a block of
-// 32); in emulate_serial_launch every thread runs in turn on the calling
-// thread; blocks run one after another. cp.async becomes a plain copy; the f32 and f64
+// emulate_block_launch a block of 32 threads is the same, and a larger
+// block (no warp collective) is one fiber a thread on the calling thread,
+// each run in turn up to its next __syncthreads, the order reversed every
+// other round and the first round's order alternating from block to block
+// and from launch to launch, so that a read that races a write shows in
+// either order, in the first phase too, wherever a launch has two blocks or
+// a test launches twice; blocks run one after another. cp.async becomes a plain copy; the f32 and f64
 // intrinsics are the host's IEEE operations (fmaf and fma are correctly
 // rounded fused multiply-adds).
 #pragma once
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+#include <ucontext.h>
 
 #include <algorithm>
 #include <barrier>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -29,7 +34,9 @@
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 
-struct float4 {
+// 16-byte aligned, as on the card: a float4 access off 16 bytes faults
+// there, and g++'s aligned moves make it fault here too
+struct alignas(16) float4 {
   float x, y, z, w;
 };
 struct dim3 {
@@ -149,35 +156,73 @@ inline void emulate_launch(unsigned grid, const std::function<void()>& body) {
 // stands in for kernel<<<grid, threads>>>(...) of a kernel that meets at
 // __syncthreads
 static std::barrier<>* g_block;
-inline void __syncthreads() { g_block->arrive_and_wait(); }
+// the fibers of a block of more than a warp: the scheduler's context, each
+// thread's, and whether it has ended
+static ucontext_t g_sched;
+static std::vector<ucontext_t> g_fiber;
+static std::vector<char> g_fiber_done;
+static const std::function<void()>* g_fiber_body;
+static bool g_in_fibers;
+// fiber launches so far: their parity sets the first round's order
+static unsigned g_fiber_launches;
+inline void __syncthreads() {
+  if (g_in_fibers)
+    swapcontext(&g_fiber[threadIdx.x], &g_sched);
+  else
+    g_block->arrive_and_wait();
+}
+inline void fiber_entry() {
+  (*g_fiber_body)();
+  g_fiber_done[threadIdx.x] = 1;
+}
 inline void emulate_block_launch(unsigned grid, unsigned threads,
                                  const std::function<void()>& body) {
-  for (unsigned b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::barrier<> block(threads);
-    g_block = &block;
+  if (threads == 32) {
     // a block of one warp: its warp collectives meet at the block's barrier
-    if (threads == 32) g_warp = &block;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < threads; ++t)
-      ts.emplace_back([&body, t] {
-        threadIdx.x = t;
-        body();
-      });
-    for (auto& t : ts) t.join();
+    for (unsigned b = 0; b < grid; ++b) {
+      blockIdx.x = b;
+      std::barrier<> block(threads);
+      g_block = g_warp = &block;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < threads; ++t)
+        ts.emplace_back([&body, t] {
+          threadIdx.x = t;
+          body();
+        });
+      for (auto& t : ts) t.join();
+    }
+    return;
   }
-}
-
-// stands in for kernel<<<grid, threads>>>(...) of a kernel whose threads
-// never meet (no barrier, shared memory or warp collective): every thread
-// of every block in turn, on the calling thread
-inline void emulate_serial_launch(unsigned grid, unsigned threads,
-                                  const std::function<void()>& body) {
+  constexpr size_t STACK = 256 << 10;
+  std::unique_ptr<char[]> stacks(new char[threads * STACK]);
+  g_fiber.assign(threads, ucontext_t{});
+  g_fiber_done.assign(threads, 0);
+  g_fiber_body = &body;
+  g_in_fibers = true;
   for (unsigned b = 0; b < grid; ++b) {
     blockIdx.x = b;
     for (unsigned t = 0; t < threads; ++t) {
-      threadIdx.x = t;
-      body();
+      ucontext_t& c = g_fiber[t];
+      getcontext(&c);
+      c.uc_stack.ss_sp = stacks.get() + t * STACK;
+      c.uc_stack.ss_size = STACK;
+      c.uc_link = &g_sched;
+      makecontext(&c, fiber_entry, 0);
+      g_fiber_done[t] = 0;
+    }
+    // a round: every live thread up to its next barrier or its end; the
+    // first round backward in every other block and launch
+    for (unsigned round = (b + g_fiber_launches) & 1, live = threads; live; ++round) {
+      live = 0;
+      for (unsigned k = 0; k < threads; ++k) {
+        const unsigned t = round & 1 ? threads - 1 - k : k;
+        if (g_fiber_done[t]) continue;
+        threadIdx.x = t;
+        swapcontext(&g_sched, &g_fiber[t]);
+        live += !g_fiber_done[t];
+      }
     }
   }
+  g_in_fibers = false;
+  ++g_fiber_launches;
 }

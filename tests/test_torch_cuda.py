@@ -840,19 +840,42 @@ def test_icp_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(eg, ec)
 
 
-@pytest.mark.parametrize("b,n", [(1, 128), (8, 1024), (69, 4096)])
-def test_icp_head_kernel_bit_identical_to_plain(cuda, b, n):
+def shifted(v: torch.Tensor, device=None) -> torch.Tensor:
+    """A contiguous copy of ``v`` (on ``device``) that starts one element
+    into its storage: for float32 and int32 not 16-byte aligned."""
+    flat = torch.empty(v.numel() + 1, dtype=v.dtype,
+                       device=device or v.device)
+    out = flat[1:].view(v.shape)
+    out.copy_(v)
+    return out
+
+
+# the ICP head at shapes whose 128-point tiles span pairs or end a launch
+# part full (N not a multiple of 128; the last tile of 7 x 150 holds 26
+# points, so its copies end off a float4; from 8 pairs on with the edge
+# rows of no correspondence and of NaN and subnormal weight totals)
+HEAD_TILE_EDGES = [(3, 200), (5, 64), (7, 150), (8, 200), (12, 96)]
+
+
+@pytest.mark.parametrize("b,n,shift", [(1, 128, False), (8, 1024, False),
+                                       (69, 4096, False)]
+                         + [(b, n, False) for b, n in HEAD_TILE_EDGES]
+                         + [(8, 1024, True), (8, 200, True)])
+def test_icp_head_kernel_bit_identical_to_plain(cuda, b, n, shift):
     """icp_head_kernel's four forms (ops/icp.py ``_icp_head`` on the card,
     one launch each) against ``_icp_head_ref`` on the CPU, bit for bit (a
-    NaN equal to any NaN), on ``icp_head_inputs``' operands and edge
-    rows."""
+    NaN equal to any NaN), on ``icp_head_inputs``' operands and edge rows:
+    tiles in one pair, tiles across pairs and a part-full last tile, and
+    (``shift``) every operand one element off 16-byte alignment, which
+    ``head_operands`` copies to aligned storage for the float4 copies."""
     from rescan_tpu_torch.ops import icp, lu6
     ops = icp_head_inputs(np.random.default_rng(b * n), b, n)
     pairsum.reset_counts()
     for form in icp.HEAD_FORMS:
         want = icp._icp_head_ref(form, *ops[form])
-        got = icp._icp_head(form, *(v.to(cuda) if torch.is_tensor(v) else v
-                                    for v in ops[form]))
+        got = icp._icp_head(form, *(
+            (shifted(v, cuda) if shift else v.to(cuda))
+            if torch.is_tensor(v) else v for v in ops[form]))
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
@@ -861,6 +884,20 @@ def test_icp_head_kernel_bit_identical_to_plain(cuda, b, n):
                     else torch.equal(g, w)), form
     assert pairsum.LAUNCHES["icp_head"] == len(icp.HEAD_FORMS)
     assert pairsum.PLAIN_CALLS["icp_head"] == 0
+
+
+@pytest.mark.parametrize("form", range(4))
+def test_icp_head_resides_without_spills(cuda, form):
+    """Every icp_head_kernel form keeps its state in registers and shared
+    memory (no local memory: its tile's rows, at most 25 floats a point,
+    and the pair's scalars) and fits at least 8 CTAs of 128 threads on an
+    SM."""
+    from rescan_tpu_torch.ops import icp
+    info = icp.head_info(form, cuda)
+    assert info["local_bytes"] == 0
+    assert info["shared_bytes"] <= 128 * 25 * 4 + 64
+    assert info["ctas_per_sm"] >= 8
+    assert 0 < info["registers"] <= 64
 
 
 def test_icp_step_makes_no_host_sync(cuda):

@@ -18,8 +18,9 @@ from rescan_tpu_torch.ops import icp as ticp, lu6, pairsum, xla_math
 from rescan_tpu_torch.ops.pairsum import (BLOCKED, BLOCKED_TAIL, CHAIN,
                                           FOLDED, FOLDED_TAIL, LANES,
                                           LANES_TAIL, ONE, WINDOW)
-from test_torch_cuda import (chain_cases, icp_head_inputs, icp_tail_inputs,
-                             lu6_systems, score_inputs, xla_math_args)
+from test_torch_cuda import (HEAD_TILE_EDGES, chain_cases, icp_head_inputs,
+                             icp_tail_inputs, lu6_systems, score_inputs,
+                             shifted, xla_math_args)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADER = os.path.join(HERE, "data", "torch_port_emu_cuda.h")
@@ -204,16 +205,13 @@ def test_rotation_trig_against_xla():
 
 def _emulated_source() -> str:
     """pairsum.cu with the emulation header, each launch a loop over
-    blocks of real threads that meet at __syncthreads (a kernel whose
-    threads never meet: every thread in turn on the calling thread)."""
+    blocks whose threads meet at __syncthreads (a warp: real threads;
+    more: fibers on the calling thread)."""
     with open(pairsum._SRC) as f:
         s = f.read()
     launch = ("#define PAIRSUM_LAUNCH(kernel, blocks, threads, stream, ...) "
               "do { (void)(stream); emulate_block_launch((blocks), (threads), "
-              "[&] { kernel(__VA_ARGS__); }); } while (0)\n"
-              "#define PAIRSUM_LAUNCH_FREE(kernel, blocks, threads, stream, "
-              "...) do { (void)(stream); emulate_serial_launch((blocks), "
-              "(threads), [&] { kernel(__VA_ARGS__); }); } while (0)")
+              "[&] { kernel(__VA_ARGS__); }); } while (0)")
     a = "#include <cuda_runtime.h>"
     assert s.count(a) == 1 and "#ifndef PAIRSUM_LAUNCH" in s
     return s.replace(a, f'#include "{HEADER}"\n{launch}')
@@ -426,7 +424,27 @@ def test_emulated_icp_head_matches_plain(emu, b, n):
     just above, d2 at 2.5 std and either side, weight totals of 0, -0.0,
     below the floor, subnormal, below 1e-7 and NaN, cancelling and
     subnormal products, negative zeros), the raw counts equal."""
+    _check_emu_head(emu, icp_head_inputs(np.random.default_rng(b * n), b, n))
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("b,n", HEAD_TILE_EDGES + [(8, 1024)])
+def test_emulated_icp_head_tile_edges_match_plain(emu, b, n, shift):
+    """icp_head_kernel where its 128-point tiles span pairs and the last
+    one is part full (N not a multiple of 128: each thread forms its own
+    pair's scalars), from 8 pairs on with ``icp_head_inputs``' edge rows
+    (pairs with no correspondence, weight totals of NaN and subnormal),
+    and (``shift``) with every operand one element off 16-byte alignment
+    (copied to aligned storage by ``head_operands``), against
+    ``_icp_head_ref`` bit for bit."""
     ops = icp_head_inputs(np.random.default_rng(b * n), b, n)
+    if shift:
+        ops = {form: tuple(shifted(v) if torch.is_tensor(v) else v
+                           for v in args) for form, args in ops.items()}
+    _check_emu_head(emu, ops)
+
+
+def _check_emu_head(emu, ops):
     for form in ticp.HEAD_FORMS:
         want = ticp._icp_head_ref(form, *ops[form])
         _, got, cargs = ticp.head_operands(form, *ops[form])

@@ -17,10 +17,11 @@ package has it, else the chain c * 1, then a * b; beside torch.addcmul);
 the 6x6 solve of 69 systems (beside torch.linalg.solve_ex); where the
 package has it, the ICP step's tail of 69 pairs on the same systems
 (beside the launch floor, an empty kernel); where the package has it,
-the ICP step's head, each of its four forms at 69 pairs x 4,096 points
-against a 99,290-row scene (the bench ICP launch's shape and level-2
-slab), the forms chained through the package's sums (beside the launch
-floor; the plain version on CPU copies of the operands). Each kernel's
+the ICP step's head, each of its four forms at 69 pairs x 4,096 and x
+8,192 points (the bench ICP launch's shape and the path's largest head
+launch) against a 99,290-row scene (the level-2 slab), the forms chained
+through the package's sums, each beside its bound (chip_smoke's
+``head_bound``: its bytes over 3.35 TB/s) and the launch floor. Each kernel's
 output is held to its plain version bit for bit first. Prints one JSON
 line: the package root, the card (name and power limit, as nvidia-smi
 gives them) and the times. Needs a CUDA device and raises without one.
@@ -146,47 +147,52 @@ def main(argv=None) -> int:
 
 
 def _head_rows(cs, cuda, rng) -> dict:
-    """The ICP head's four forms at the bench ICP launch's shape, each held
-    to the plain version bit for bit on CPU copies, then timed."""
+    """The ICP head's four forms at the bench ICP launch's shape and at the
+    path's largest head launch, each held to the plain version bit for
+    bit on CPU copies, then timed beside its byte bound."""
     import numpy as np
     import torch
     from rescan_tpu_torch.ops import icp, lu6, pairsum
-    b, n, m = 69, 4096, 99_290
-    idx = rng.integers(0, m, (b, n)).astype(np.int32)
-    idx[rng.random((b, n)) < 0.3] = -1
-    nrm = rng.normal(size=(m, 3))
-    a = [torch.from_numpy(v).to(cuda) for v in (
-        idx, (rng.random((b, n)) * 0.01).astype(np.float32),
-        rng.uniform(0.5, 1.0, (b, n)).astype(np.float32),
-        np.arange(n)[None] < rng.integers(n // 2, n + 1, (b, 1)),
-        rng.normal(size=(m, 3)).astype(np.float32),
-        (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(
-            np.float32))]
-    q = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(
-        cuda)
-    ops = {icp.HEAD_A: (*a, np.float32(0.1))}
-    x1, w0, p2, n2 = icp._icp_head(icp.HEAD_A, *ops[icp.HEAD_A])
-    s1 = pairsum.sums(x1, icp._SPEC1)
-    ops[icp.HEAD_B] = (x1, s1)
-    x2, _ = icp._icp_head(icp.HEAD_B, x1, s1)
-    ops[icp.HEAD_C] = (x1, w0, s1, pairsum.sums(x2, icp._SPEC2), q, p2)
-    x3, = icp._icp_head(icp.HEAD_C, *ops[icp.HEAD_C])
-    ops[icp.HEAD_D] = (x3, n2, pairsum.sums(x3, icp._specs(n, False)[0]))
+    b, m = 69, 99_290
     rows = {}
-    for form, args in ops.items():
-        got = icp._icp_head(form, *args)
-        want = icp._icp_head_ref(form, *(v.cpu() if torch.is_tensor(v)
-                                          else v for v in args))
-        for g, w in zip(got, want):
-            g = g.cpu()
-            if not (lu6.same_bits(g, w) if g.is_floating_point()
-                    else torch.equal(g, w)):
-                raise SystemExit(f"icp_head form {form}: differs from the "
-                                 f"plain version")
-        rows[f"icp_head form {'ABCD'[form]}, {b} x {n}"] = {
-            "ms": cs.kernel_ms(lambda f=form, v=args: icp._icp_head(f, *v),
-                               "icp_head")}
-    rows[f"icp_head form A, {b} x {n}"]["launch_floor_ms"] = cs.queued_ms(
+    for n in (4096, 8192):
+        idx = rng.integers(0, m, (b, n)).astype(np.int32)
+        idx[rng.random((b, n)) < 0.3] = -1
+        nrm = rng.normal(size=(m, 3))
+        a = [torch.from_numpy(v).to(cuda) for v in (
+            idx, (rng.random((b, n)) * 0.01).astype(np.float32),
+            rng.uniform(0.5, 1.0, (b, n)).astype(np.float32),
+            np.arange(n)[None] < rng.integers(n // 2, n + 1, (b, 1)),
+            rng.normal(size=(m, 3)).astype(np.float32),
+            (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(
+                np.float32))]
+        q = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(
+            np.float32)).to(cuda)
+        ops = {icp.HEAD_A: (*a, np.float32(0.1))}
+        x1, w0, p2, n2 = icp._icp_head(icp.HEAD_A, *ops[icp.HEAD_A])
+        s1 = pairsum.sums(x1, icp._SPEC1)
+        ops[icp.HEAD_B] = (x1, s1)
+        x2, _ = icp._icp_head(icp.HEAD_B, x1, s1)
+        ops[icp.HEAD_C] = (x1, w0, s1, pairsum.sums(x2, icp._SPEC2), q, p2)
+        x3, = icp._icp_head(icp.HEAD_C, *ops[icp.HEAD_C])
+        ops[icp.HEAD_D] = (x3, n2, pairsum.sums(x3, icp._specs(n, False)[0]))
+        for form, args in ops.items():
+            got = icp._icp_head(form, *args)
+            want = icp._icp_head_ref(form, *(v.cpu() if torch.is_tensor(v)
+                                              else v for v in args))
+            for g, w in zip(got, want):
+                g = g.cpu()
+                if not (lu6.same_bits(g, w) if g.is_floating_point()
+                        else torch.equal(g, w)):
+                    raise SystemExit(f"icp_head form {form} {b} x {n}: "
+                                     f"differs from the plain version")
+            ms = cs.kernel_ms(lambda f=form, v=args: icp._icp_head(f, *v),
+                              "icp_head")
+            bound, by, _ = cs.head_bound(form, args, got)
+            rows[f"icp_head form {'ABCD'[form]}, {b} x {n}"] = {
+                "ms": ms, "bound_ms": bound, "bound_by": by,
+                "share_of_bound": bound / ms}
+    rows[f"icp_head form A, {b} x 4096"]["launch_floor_ms"] = cs.queued_ms(
         lambda: pairsum.run("empty", cuda))[0]
     return rows
 
