@@ -7,17 +7,18 @@ result lines:
 
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
-2. build   — the native host library and the two CUDA libraries (gated NN;
-             per-pair sums, fma chains, the 6x6 solve, XLA's f32 math,
-             scoring's per-point terms and the ICP step's head and tail),
-             from this checkout's sources, the three
-             compilers started together; ptxas's report and, per gated-NN
-             instantiation and ICP head form, its residency (CTAs per SM
-             by the occupancy calculator, registers, shared and local
-             bytes); fails unless
-             ptxas gives every instantiation of icp_head_kernel,
-             icp_tail_kernel and lu6_kernel a 0-byte stack frame and no
-             spills (every value in registers);
+2. build   — the native host library and the three CUDA libraries (gated
+             NN; per-pair sums, fma chains, the 6x6 solve, XLA's f32 math,
+             scoring's per-point terms and the ICP step's head and tail;
+             the grid and dense search engines), from this checkout's
+             sources, the four compilers started together; ptxas's report
+             and, per gated-NN instantiation and ICP head form, its
+             residency (CTAs per SM by the occupancy calculator,
+             registers, shared and local bytes); fails unless ptxas gives
+             every instantiation of icp_head_kernel, icp_tail_kernel,
+             lu6_kernel, grid_radius_knn_kernel,
+             grid_nearest_gated_kernel and dense_nearest_kernel a 0-byte
+             stack frame and no spills (every value in registers);
 3. kernels — K1 (gated_min) and K2 (nearest_gated) against their plain
              PyTorch versions on the card: random fixtures (duplicated
              points, both tile sizes, both gate kinds, a query count that
@@ -27,8 +28,16 @@ result lines:
              bit-identical idx/d2/dot required. For each bench launch:
              kernel and plain times, the pairs the kernel evaluates (the
              host count of its run pruning) and the pairs within r, and
-             the bound. Then K1's time on the scoring launch at several
-             shared-memory carveouts, i.e. at fewer CTAs per SM. Then
+             the bound. The grid kernels (radius_knn at K 8 and 16,
+             nearest_gated) and the dense kernel against their plain
+             versions, bit for bit, on the same random fixture, and the
+             grid and dense nearest_gated on the queries of both bench
+             launches (each engine built on the launch's scene points, the
+             grid with the JAX package's cell), with kernel and plain
+             times, pairs evaluated and within r, the bound and K1/K2's
+             time on the same queries. Then K1's time on the scoring
+             launch at several shared-memory carveouts, i.e. at fewer
+             CTAs per SM. Then
              pairsum (the ICP's and scoring's per-pair sums in the JAX
              package's order) against its plain version, bit for bit: random
              rows of every kind up to 32768 points, whole and chained over
@@ -42,7 +51,11 @@ result lines:
              on 1,048,576 arguments against their plain versions;
 4. parity  — the port's driver over the small 2-scan sequence, held to
              the JAX package's committed outputs
-             (tests/data/torch_port_small_ref.npz);
+             (tests/data/torch_port_small_ref.npz, its run on the CPU's
+             HashGrid); then again with every index a HashGrid
+             (search.build_index with prefer_dense=False): no slab kernel
+             launched, every grid kernel did, held at the same limits,
+             the output differences printed;
 5. slice   — the port's driver over bench.py's 2-scan scene (seg2rsdb,
              pose_proposal, segment_transfer) on the single device
              [cuda:0], with the kernel launch counts reset just before
@@ -70,6 +83,14 @@ result lines:
              systems and angles, held and measured alike; the rescan's
              distance from the slab run, the fma-family launches, and the
              augmentation ICP's placements of 256 points or fewer;
+             label_smooth split into the smoothing graph's radius search
+             (grid build, grid_radius_knn), native smooth_graph and the
+             alpha-beta swap; that search's launch held to its plain
+             version bit for bit and timed beside the native HostGrid's
+             host search of the same points, whose graph must have the
+             same edges and weights within rtol 1e-6; the grid and dense
+             engines on the largest label-transfer launch's queries, as
+             in phase 3;
 6. mesh    — the same driver on a 4-slot mesh (parallel/mesh.py): four
              slots on cuda:0, or over the visible cards when there are 2
              or more. (a) the small sequence held to the committed JAX
@@ -149,9 +170,25 @@ REPLACES_OF = {"pairsum": "rescan_tpu/ops/icp.py:132",
                "score_terms": "rescan_tpu/ops/score.py:160",
                "icp_head": "rescan_tpu/ops/icp.py:125",
                "icp_tail": "rescan_tpu/ops/icp.py:160"}
+# the JAX package's two other search engines (no Pallas kernel either:
+# what XLA compiled for hashgrid.radius_knn, hashgrid.nearest_gated and
+# dense_nn._nearest_chunk); the main path runs the first, in the smoothing
+# graph's search
+GRID_SOURCE = "rescan_tpu_torch/ops/csrc/hashgrid.cu"
+ENGINE_KERNELS = ("grid_radius_knn", "grid_nearest_gated", "dense_nearest")
+SOURCES.update(dict.fromkeys(ENGINE_KERNELS, GRID_SOURCE))
+REPLACES_OF.update({"grid_radius_knn": "rescan_tpu/ops/hashgrid.py:198",
+                    "grid_nearest_gated": "rescan_tpu/ops/hashgrid.py:164",
+                    "dense_nearest": "rescan_tpu/ops/dense_nn.py:71"})
+# the kernels every rescan on the main path launches
+PATH_KERNELS = (("gated_min", "nearest_gated")
+                + tuple(k for k in PORT_KERNELS if k not in INSIDE_TAIL)
+                + ("grid_radius_knn",))
 # the kernels whose ptxas report must show no stack frame and no spills
-# (every instantiation): every value in registers
+# (every instantiation): every value in registers; per library
 REGISTER_RESIDENT = ("icp_head_kernel", "icp_tail_kernel", "lu6_kernel")
+GRID_RESIDENT = ("grid_radius_knn_kernel", "grid_nearest_gated_kernel",
+                 "dense_nearest_kernel")
 REF_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small_ref.npz")
 REF3_NPZ = os.path.join(HERE, "tests", "data", "torch_port_small3_ref.npz")
 REF3_SLAB_NPZ = os.path.join(HERE, "tests", "data",
@@ -171,8 +208,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
 # FP32 work of one pair within r: d2 (3 subtractions, a multiply, two
-# FMAs = 8 flops) and the normal dot (a multiply, two FMAs = 5 flops)
+# FMAs = 8 flops) and the normal dot (a multiply, two FMAs = 5 flops);
+# radius_knn's needs d2 alone
 FLOP_PER_PAIR = 13
+FLOP_PER_KNN_PAIR = 8
 # a dependent FP32 FMA's latency on Hopper, in cycles: the floor of a
 # chain of n of them is n * 4 cycles at the SM clock
 FMA_LATENCY_CYCLES = 4
@@ -290,20 +329,25 @@ def _timed(fn):
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
     from rescan_tpu_torch.core import native
-    from rescan_tpu_torch.ops import gnn, pairsum
+    from rescan_tpu_torch.ops import gnn, hashgrid, pairsum
     # one compiler per source, all started together
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         jobs = [ex.submit(_timed, f) for f in (
-            native._load, gnn.load_library, pairsum.load_library)]
-        (lib, t_native), (_, t_gnn), (_, t_sum) = (j.result() for j in jobs)
+            native._load, gnn.load_library, pairsum.load_library,
+            hashgrid.load_library)]
+        (lib, t_native), (_, t_gnn), (_, t_sum), (_, t_grid) = (
+            j.result() for j in jobs)
     say("build", f"native host lib {os.path.relpath(lib._name, HERE)} "
         f"{t_native:.2f}s, CUDA gnn kernel {t_gnn:.2f}s, CUDA pairsum "
-        f"kernel {t_sum:.2f}s (built side by side)")
-    for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG).splitlines():
+        f"kernel {t_sum:.2f}s, CUDA grid and dense kernels {t_grid:.2f}s "
+        f"(built side by side)")
+    for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG
+                 + hashgrid.BUILD_LOG).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", "ptxas " + line.strip())
-    for kernel in REGISTER_RESIDENT:
-        for name, use in ptxas_usage(pairsum.BUILD_LOG, kernel).items():
+    for log, kernel in ([(pairsum.BUILD_LOG, k) for k in REGISTER_RESIDENT]
+                        + [(hashgrid.BUILD_LOG, k) for k in GRID_RESIDENT]):
+        for name, use in ptxas_usage(log, kernel).items():
             say("build", f"ptxas {name}: {use['registers']} registers, "
                 f"{use['stack']} bytes stack frame, {use['spill_stores']} "
                 f"bytes spill stores, {use['spill_loads']} bytes spill loads")
@@ -383,7 +427,10 @@ def _bench_queries(cuda, root):
     """The bench scene's K1 and K2 launches, built as the pipeline builds
     them: (slab, queries, normals, radius, cos_gate, use_abs) of the K1
     4M-query scoring launch on the level-1 slab and of the K2 64-pair ICP
-    launch on the level-2 slab (tile 1024)."""
+    launch on the level-2 slab (tile 1024); and of each, the scene points
+    and normals the slab holds and the cell the JAX package gives an
+    engine built for that query (its ``build_index`` call)."""
+    from rescan_tpu_torch import config
     from rescan_tpu_torch.core.pointcloud import PointCloud
     from rescan_tpu_torch.utils import synthetic
     from rescan_tpu_torch.ops import icp, score, search
@@ -405,8 +452,8 @@ def _bench_queries(cuda, root):
     T[:3, 3] = -c
     obj.transform(T)
 
-    slab1 = search.build_index(scene.pos(1), normals=scene.nrm(1),
-                               device=cuda)
+    slab1 = search.build_index(scene.pos(1), config.SCORE_SEARCH_RADII[1],
+                               normals=scene.nrm(1), device=cuda)
     occ = pose_proposal.SceneOccupancy(scene.pos(1), 0.1,
                                        scene_nrm=scene.nrm(1))
     hyps, _, _ = score.grid_search_hypotheses(scene.bbox[0], scene.bbox[1])
@@ -421,8 +468,8 @@ def _bench_queries(cuda, root):
     sqn = torch.einsum("hij,pj->hpi", H[:, :3, :3], Nt).reshape(-1, 3) \
         .contiguous()
 
-    slab2 = search.build_index(scene.pos(2), normals=scene.nrm(2),
-                               tile=1024, device=cuda)
+    slab2 = search.build_index(scene.pos(2), config.REFINE_ICP_MAX_DIST,
+                               normals=scene.nrm(2), tile=1024, device=cuda)
     rng = np.random.default_rng(0)
     B = ICP_PAIRS
     Ts = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
@@ -444,10 +491,13 @@ def _bench_queries(cuda, root):
         "K1 scoring": ("gated_min", slab1, sq, sqn, 0.1,
                        score.SCORE_COS_GATE, False),
         "K2 ICP": ("nearest_gated", slab2, iq, iqn, 0.1,
-                   icp.cos_gate_of(np.deg2rad(60.0)), False)}
+                   icp.cos_gate_of(np.deg2rad(60.0)), False)}, {
+        "K1 scoring": (scene.pos(1), scene.nrm(1),
+                       config.SCORE_SEARCH_RADII[1]),
+        "K2 ICP": (scene.pos(2), scene.nrm(2), config.REFINE_ICP_MAX_DIST)}
 
 
-def _bound(kind, slab, q, pairs_in_r):
+def _bound(kind, n_points, m, pairs_in_r, flop_per_pair=FLOP_PER_PAIR):
     """(bound ms, what sets it): the bytes the function must move over
     HBM3's rate, against the FP32 work of the pairs within r over the FP32
     peak. Bytes: each query's position and normal read (24 B) and its
@@ -455,11 +505,10 @@ def _bound(kind, slab, q, pairs_in_r):
     valid slab point's position and normal read (24 B; K2 adds its
     original index, 4 B). Padding columns and the kernel's own tables
     (tile and run bounds) are the kernel's choice, not the function's."""
-    m = q.shape[0]
     k2 = kind == "nearest_gated"
-    bytes_ = m * (24 + (12 if k2 else 8)) + slab.n_valid * (28 if k2 else 24)
+    bytes_ = m * (24 + (12 if k2 else 8)) + n_points * (28 if k2 else 24)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = pairs_in_r * FLOP_PER_PAIR / FP32_FLOP_PER_S * 1e3
+    t_ops = pairs_in_r * flop_per_pair / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -494,14 +543,25 @@ def phase_kernels(cuda, bench_root) -> dict:
         say("kernels", f"random tile={tile} r={radius} abs={use_abs}: "
             f"{int((p2[0] >= 0).sum())}/{m} found, 0 mismatches")
 
-    launches = _bench_queries(cuda, bench_root)
+    err.update(_engine_random(cuda, pts, nrm, qt, qnt))
+
+    launches, clouds = _bench_queries(cuda, bench_root)
     rows = {what: _bench_row(what, *launch)
             for what, launch in launches.items()}
     for row in rows.values():
         err[row["kind"]] = max(err[row["kind"]], row["max_abs_err"])
+    engines = {what: _engine_bench(what, launch, clouds[what],
+                                   rows[what]["ms"])
+               for what, launch in launches.items()}
+    for er in engines.values():
+        for k, row in er.items():
+            err[k] = max(err[k], row["max_abs_err"])
     _residency(cuda, launches["K1 scoring"])
     first = {"gated_min": "K1 scoring", "nearest_gated": "K2 ICP"}
     rows = {k: rows[v] for k, v in first.items()}
+    # the engines' largest launch: scoring's
+    rows.update(engines["K1 scoring"])
+    rows["engine_launches"] = engines
     err["pairsum"] = _pairsum_random(cuda)
     n_pts = launches["K2 ICP"][2].shape[0] // ICP_PAIRS
     icp_rows = [_pairsum_row(cuda, r, ICP_PAIRS, n_pts) for r in (3, 4)]
@@ -516,6 +576,104 @@ def phase_kernels(cuda, bench_root) -> dict:
     rows["score_terms"] = _score_terms_row(cuda, launches["K1 scoring"])
     _xla_math_rows(cuda)
     return {"err": err, "rows": rows}
+
+
+def _events_ms(fn):
+    """(fn(), milliseconds) of one call by CUDA events around it, the
+    host's work and any wait on the card included (plain versions)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _engine_random(cuda, pts, nrm, qt, qnt) -> dict:
+    """The grid kernels (radius_knn at K = 8 and 16; nearest_gated, both
+    gate kinds) and the dense kernel against their plain versions on
+    phase 3's random fixture: duplicated points, far queries, a query
+    count that is no multiple of the CTA. Returns each kernel's largest
+    |kernel - plain| over finite values."""
+    from rescan_tpu_torch.ops import dense_nn, hashgrid, score
+    err = dict.fromkeys(ENGINE_KERNELS, 0.0)
+    dense = dense_nn.build_dense_index(pts, nrm, device=cuda)
+    for radius, gate, use_abs in ((0.1, score.SCORE_COS_GATE, False),
+                                  (0.075, -1.0, True)):
+        grid = hashgrid.build_grid(pts, radius, normals=nrm, device=cuda)
+        args = (qt, qnt, radius, gate, use_abs)
+        _, e = _compare("grid nearest_gated random",
+                        hashgrid.nearest_gated(grid, *args),
+                        hashgrid.nearest_gated_ref(grid, *args))
+        err["grid_nearest_gated"] = max(err["grid_nearest_gated"], e)
+        got = dense_nn.nearest_gated_dense(dense, *args)
+        _, e = _compare("dense random", got,
+                        dense_nn.nearest_gated_dense_ref(dense, *args))
+        err["dense_nearest"] = max(err["dense_nearest"], e)
+        say("kernels", f"grid and dense random r={radius} abs={use_abs}: "
+            f"cap {grid.cap}, {int((got[0] >= 0).sum())}/{qt.shape[0]} "
+            f"found, 0 mismatches")
+    for k in hashgrid.KERNEL_K:
+        got = hashgrid.radius_knn(grid, qt, 0.075, k)
+        _, e = _compare(f"grid radius_knn random K={k}", got,
+                        hashgrid.radius_knn_ref(grid, qt, 0.075, k))
+        err["grid_radius_knn"] = max(err["grid_radius_knn"], e)
+        say("kernels", f"grid radius_knn random K={k} r=0.075: "
+            f"{int(got[2].sum())} neighbours, {int((got[2] == k).sum())} "
+            f"queries full, 0 mismatches")
+    return err
+
+
+def _engine_bench(what, launch, cloud, k_ms, phase="kernels") -> dict:
+    """The grid and dense kernels on the queries of one bench launch of
+    K1/K2, each engine built on the launch's scene points (the grid with
+    the JAX package's cell for that query): bit for bit against the plain
+    versions; kernel, plain, and K1/K2's ms on the same queries; the
+    pairs each kernel evaluates and those within r; the bound (as
+    ``_bound``, with the index written: both engines return it). Prints
+    a line per engine; returns {kernel: row}."""
+    from rescan_tpu_torch.ops import dense_nn, hashgrid
+    _, _, q, qn, radius, gate, use_abs = launch
+    pts, nrm, cell = cloud
+    grid = hashgrid.build_grid(pts, cell, normals=nrm, device=q.device)
+    dense = dense_nn.build_dense_index(pts, nrm, device=q.device)
+    args = (q, qn, radius, gate, use_abs)
+    m, n = q.shape[0], len(pts)
+    reps = 3 if m > 1_000_000 else 10
+    rows = {}
+    for name, kern, plain in (
+            ("grid_nearest_gated",
+             lambda: hashgrid.nearest_gated(grid, *args),
+             lambda st: hashgrid.nearest_gated_ref(grid, *args, stats=st)),
+            ("dense_nearest",
+             lambda: dense_nn.nearest_gated_dense(dense, *args),
+             lambda st: dense_nn.nearest_gated_dense_ref(dense, *args,
+                                                         stats=st))):
+        st = {}
+        want, t_p = _events_ms(lambda: plain(st))
+        _, e = _compare(f"{name} {what}", kern(), want)
+        # kernel, kernel: the plain version ran once, before them
+        t_k = [kernel_ms(kern, name, reps), kernel_ms(kern, name, reps)]
+        bound, by = _bound("nearest_gated", n, m, st["in_radius"])
+        ms = min(t_k)
+        say(phase, f"bench {what} launch on the {name.split('_')[0]} engine"
+            f" (cell {cell}" + (f", cap {grid.cap}" if name.startswith(
+                "grid") else "") + f"): {m} queries on {n} points, "
+            f"{int((want[0] >= 0).sum())} found, 0 mismatches; kernel "
+            f"{ms:.4f} ms (runs {[round(t, 4) for t in t_k]}), plain "
+            f"{t_p:.3f} ms, K1/K2 on the same queries {k_ms:.4f} ms; pairs "
+            f"evaluated {st['pairs']}, within r {st['in_radius']}; bound "
+            f"{bound:.5f} ms ({by}), kernel at {bound / ms:.5f} of it")
+        rows[name] = {"queries": m, "points": n, "cell": cell, "ms": ms,
+                      "ms_runs": t_k, "timing": TIMING, "plain_ms": t_p,
+                      "plain_timing": "CUDA events around one call",
+                      "k1_k2_ms": k_ms, "bound_ms": bound, "bound_by": by,
+                      "share_of_bound": bound / ms, "max_abs_err": e,
+                      "pairs": st["pairs"], "in_radius": st["in_radius"]}
+    print(json.dumps({"engine_launch": {what: rows}}), flush=True)
+    return rows
 
 
 def _pairsum_random(cuda) -> float:
@@ -788,7 +946,7 @@ def _bench_row(what, kind, slab, bq, bqn, radius, gate, use_abs,
     t_p.append(cuda_ms(lambda: plain(*args), 1))
     t_k.append(kernel_ms(lambda: kern(*args), kind, reps))
     c = gnn.pair_counts(*args)
-    bound, by = _bound(kind, slab, bq, c["in_radius"])
+    bound, by = _bound(kind, slab.n_valid, bq.shape[0], c["in_radius"])
     ms = min(t_k)
     found = (p[0] >= 0) if kind == "nearest_gated" else torch.isfinite(p[0])
     say(phase, f"bench {what} launch: {bq.shape[0]} queries on "
@@ -850,47 +1008,63 @@ def _run_driver(root: str, class_file: str, devices, profiles=None) -> None:
 
 def _counts():
     """(launches, plain calls) of every kernel wrapper."""
-    from rescan_tpu_torch.ops import gnn, pairsum
-    return (dict(gnn.LAUNCHES, **pairsum.LAUNCHES),
-            dict(gnn.PLAIN_CALLS, **pairsum.PLAIN_CALLS))
+    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, pairsum
+    mods = (gnn, pairsum, hashgrid, dense_nn)
+    return ({k: v for m in mods for k, v in m.LAUNCHES.items()},
+            {k: v for m in mods for k, v in m.PLAIN_CALLS.items()})
 
 
 def _reset_counts() -> None:
-    from rescan_tpu_torch.ops import gnn, pairsum
-    gnn.reset_counts()
-    pairsum.reset_counts()
+    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, pairsum
+    for m in (gnn, pairsum, hashgrid, dense_nn):
+        m.reset_counts()
 
 
-def _counted(phase: str, what: str, fn):
+def _counted(phase: str, what: str, fn, need=PATH_KERNELS, none=()):
     """fn() with the kernel launch counts reset just before and read just
-    after; fails unless every kernel launched and no plain version ran."""
+    after; fails unless every kernel in ``need`` launched, none in
+    ``none`` did, and no plain version ran."""
     _reset_counts()
     out = fn()
     torch.cuda.synchronize()
     launches, plain = _counts()
-    if min(v for k, v in launches.items() if k not in INSIDE_TAIL) == 0 \
-            or any(plain.values()):
+    if min(launches[k] for k in need) == 0 or any(
+            launches[k] for k in none) or any(plain.values()):
         raise SystemExit(f"[{phase}] FAIL {what}: kernel launches "
                          f"{launches}, plain calls {plain}")
     return out, launches, plain
 
 
-def _small_parity(phase: str, work: str, devices) -> str:
+def _small_parity(phase: str, work: str, devices, grid: bool = False) -> str:
     """The small sequence through the driver on ``devices``, held to the
-    committed JAX outputs; returns a summary."""
+    committed JAX outputs; returns a summary. ``grid``: every index on
+    the HashGrid (``search.build_index`` with ``prefer_dense=False``),
+    whose kernels then answer every query and no slab kernel runs."""
     from rescan_tpu_torch import sequences
-    root = os.path.join(work, f"small_{len(devices)}")
+    from rescan_tpu_torch.ops import search
+    root = os.path.join(work, f"small_{len(devices)}" + "_grid" * grid)
     class_file = sequences.write_small_sequence(root)
     t0 = time.perf_counter()
-    _, launches, plain = _counted(
-        phase, "small sequence",
-        lambda: _run_driver(root, class_file, devices))
+    slab = ("gated_min", "nearest_gated")
+    real = search.build_index
+    if grid:
+        search.build_index = functools.partial(real, prefer_dense=False)
+    try:
+        _, launches, plain = _counted(
+            phase, "small sequence",
+            lambda: _run_driver(root, class_file, devices),
+            need=(tuple(k for k in PATH_KERNELS if k not in slab)
+                  + ("grid_nearest_gated",)) if grid else PATH_KERNELS,
+            none=slab if grid else ())
+    finally:
+        search.build_index = real
     got = sequences.read_outputs(root)
     ref = dict(np.load(REF_NPZ))
     bad = sequences.compare_outputs(ref, got)
     if bad:
         raise SystemExit(f"[{phase}] FAIL vs "
-                         f"{os.path.relpath(REF_NPZ, HERE)}: {bad}")
+                         f"{os.path.relpath(REF_NPZ, HERE)}: {bad}; "
+                         f"{sequences.output_diffs(ref, got)}")
     starts = np.concatenate([[0], np.cumsum(ref["prop_counts"])[:-1]])
     top = [i for i, n in zip(starts, ref["prop_counts"]) if n]
     return (
@@ -905,11 +1079,19 @@ def _small_parity(phase: str, work: str, devices) -> str:
         f"agreement class "
         f"{(ref['class_ids'] == got['class_ids']).mean():.6f} instance "
         f"{(ref['instance_ids'] == got['instance_ids']).mean():.6f}; "
-        f"kernel launches {launches}, plain calls {plain}")
+        f"{sequences.output_diffs(ref, got)}; outputs not bit-identical: "
+        f"{_exact(ref, got) or 'none'}; kernel launches {launches}, plain "
+        f"calls {plain}")
 
 
-def phase_parity(cuda, work: str) -> None:
+def phase_parity(cuda, work: str) -> dict:
+    """The small sequence on the slab, then on the HashGrid, each held
+    to the JAX package's committed run (its CPU engine is the HashGrid);
+    returns the grid run's launches."""
     say("parity", _small_parity("parity", work, [cuda]))
+    say("parity", "on the grid engine: " + _small_parity(
+        "parity", work, [cuda], grid=True))
+    return dict(_counts()[0])
 
 
 # the recorded calls of one wrapper, one per distinct shape, at most
@@ -1343,7 +1525,7 @@ def phase_slice(cuda, root: str, class_file: str):
     path_calls, undo = _record_path_calls()
     t0 = time.perf_counter()
     try:
-        with _aug_icp_sizes() as aug:
+        with _aug_icp_sizes() as aug, _smoothing_parts() as smooth:
             _, launches, plain = _counted(
                 "slice", "bench sequence",
                 lambda: _run_driver(root, class_file, [cuda],
@@ -1403,11 +1585,135 @@ def phase_slice(cuda, root: str, class_file: str):
                           p["pose_proposal"].items()},
         "segment_transfer": {k: round(v, 4) for k, v in
                              p["segment_transfer"].items()}}}), flush=True)
-    _label_launches(label_calls)
-    return launches, out, _path_launches(path_calls)
+    engine_rows = _label_launches(label_calls)
+    rows = _path_launches(path_calls)
+    rows["grid_radius_knn"] = _smoothing_rows(smooth, stages["label_smooth"])
+    rows["label_engines"] = engine_rows
+    return launches, out, rows
 
 
-def _label_launches(calls) -> None:
+@contextlib.contextmanager
+def _smoothing_parts():
+    """Time label_smooth's parts in the rescan (ops/labels.py): the radius
+    search (the grid's host build, then ``radius_knn``, synchronised),
+    ``native.smooth_graph`` and ``native.abswap``; record the search's
+    launch (its queries copied) and smooth_graph's normals. Yields the
+    record: {part: [seconds per call]}, "knn": [(grid, q, radius, k)],
+    "nrm": [normals]."""
+    from rescan_tpu_torch.core import native
+    from rescan_tpu_torch.ops import hashgrid
+    got = {"build_grid": [], "radius_knn": [], "smooth_graph": [],
+           "abswap": [], "knn": [], "nrm": []}
+    real = (hashgrid.build_grid, hashgrid.radius_knn, native.smooth_graph,
+            native.abswap)
+
+    def timed(part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            got[part].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def knn(grid, q, radius, k, chunk=4096):
+        got["knn"].append((grid, q.clone(), radius, k))
+        return timed("radius_knn", real[1])(grid, q, radius, k, chunk)
+
+    def smooth_graph(idx, d2, nrm, *a):
+        got["nrm"].append(nrm)
+        return timed("smooth_graph", real[2])(idx, d2, nrm, *a)
+
+    hashgrid.build_grid = timed("build_grid", real[0])
+    hashgrid.radius_knn = knn
+    native.smooth_graph = smooth_graph
+    native.abswap = timed("abswap", real[3])
+    try:
+        yield got
+    finally:
+        (hashgrid.build_grid, hashgrid.radius_knn, native.smooth_graph,
+         native.abswap) = real
+
+
+def _smoothing_rows(smooth, label_smooth_s: float) -> dict:
+    """label_smooth's split in the rescan; its radius search's launch held
+    to the plain version bit for bit and timed (kernel, plain, the
+    native HostGrid's host search of the same points, in this call), its
+    pair counts and bound; the graph from the HostGrid's search against
+    the kernel's (the same edges, the weights within rtol 1e-6). Returns
+    the kernels-line row of grid_radius_knn."""
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.core import native
+    from rescan_tpu_torch.ops import hashgrid
+    if len(smooth["knn"]) != 1 or len(smooth["abswap"]) != 1:
+        raise SystemExit(f"[slice] FAIL: {len(smooth['knn'])} smoothing "
+                         f"searches, {len(smooth['abswap'])} alpha-beta "
+                         f"swaps recorded (one each expected)")
+    parts = {k: smooth[k][0] for k in ("build_grid", "radius_knn",
+                                       "smooth_graph", "abswap")}
+    parts["rest"] = label_smooth_s - sum(parts.values())
+    grid, q, radius, k = smooth["knn"][0]
+    st = {}
+    want, t_p = _events_ms(lambda: hashgrid.radius_knn_ref(
+        grid, q, radius, k, stats=st))
+    got = hashgrid.radius_knn(grid, q, radius, k)
+    _, e = _compare("grid radius_knn smoothing launch", got, want)
+    t_k = [kernel_ms(lambda: hashgrid.radius_knn(grid, q, radius, k),
+                     "grid_radius_knn", 10) for _ in range(2)]
+    m, n = q.shape[0], grid.points.shape[0]
+    # bytes: each query's position read, its k indices and distances and
+    # its count written; each point's position and original index read
+    n_bytes = m * (12 + k * 8 + 4) + n * 16
+    bound, by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (st["in_radius"] * FLOP_PER_KNN_PAIR / FP32_FLOP_PER_S
+                     * 1e3, "operations"))
+    ms = min(t_k)
+    # the native HostGrid's search of the same points, on the host
+    pts = q.cpu().numpy()
+    t0 = time.perf_counter()
+    hidx, hd2, _ = native.HostGrid(pts, radius).radius_search(pts, radius, k)
+    t_host = time.perf_counter() - t0
+    r2 = np.float32(radius * radius)
+    exps = (config.SMOOTH_DIST_EXP, config.SMOOTH_ANGLE_EXP)
+    eh, wh = native.smooth_graph(hidx, hd2, smooth["nrm"][0], r2, *exps)
+    eg, wg = native.smooth_graph(got[0].cpu().numpy(), got[1].cpu().numpy(),
+                                 smooth["nrm"][0], r2, *exps)
+    oh, og = np.lexsort(eh.T[::-1]), np.lexsort(eg.T[::-1])
+    same = eh.shape == eg.shape and np.array_equal(eh[oh], eg[og])
+    if not same or not np.allclose(wh[oh], wg[og], rtol=1e-6, atol=0):
+        raise SystemExit(f"[slice] FAIL: the HostGrid's graph has "
+                         f"{len(eh)} edges, the kernel's {len(eg)}; same "
+                         f"edges: {same}")
+    nz = wg[og] != 0
+    w_rel = float(np.max(np.abs(wh[oh] - wg[og])[nz] / np.abs(wg[og][nz]),
+                         initial=0))
+    say("slice", f"label_smooth {label_smooth_s:.4f} s: radius search "
+        f"{parts['build_grid'] + parts['radius_knn']:.4f} s (grid build "
+        f"{parts['build_grid']:.4f}, radius_knn {parts['radius_knn']:.4f} "
+        f"synchronised), smooth_graph "
+        f"{parts['smooth_graph']:.4f}, alpha-beta swap {parts['abswap']:.4f},"
+        f" the rest {parts['rest']:.4f}")
+    say("slice", f"the smoothing search's launch: {m} queries, K {k}, r "
+        f"{radius}, cap {grid.cap}; 0 mismatches against the plain "
+        f"version; kernel {ms:.4f} ms (runs {[round(t, 4) for t in t_k]}),"
+        f" plain {t_p:.3f} ms, the native HostGrid's host search "
+        f"{t_host * 1e3:.3f} ms; pairs evaluated {st['pairs']}, within r "
+        f"{st['in_radius']}; bound {bound:.5f} ms ({by}), kernel at "
+        f"{bound / ms:.5f} of it; the HostGrid's graph: the same "
+        f"{len(eg)} edges, weights within {w_rel:.3g} relative")
+    row = {"queries": m, "points": n, "k": k, "cap": grid.cap, "ms": ms,
+           "ms_runs": t_k, "timing": TIMING, "plain_ms": t_p,
+           "plain_timing": "CUDA events around one call",
+           "hostgrid_ms": t_host * 1e3, "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / ms, "max_abs_err": e,
+           "pairs": st["pairs"], "in_radius": st["in_radius"],
+           "label_smooth_split_s": parts}
+    print(json.dumps({"smoothing": row}), flush=True)
+    return row
+
+
+def _label_launches(calls) -> dict:
     """Phase 5's label-transfer launches (one per placement: the scan
     points in the placement's bbox, in the object's frame), each held to
     the plain version bit for bit and measured as phase 3's bench
@@ -1422,6 +1728,19 @@ def _label_launches(calls) -> None:
         f"{[r['queries'] for r in rows]}, kernel ms total "
         f"{sum(r['ms'] for r in rows):.4f}; the largest is launch "
         f"{big + 1}")
+    # the grid and dense engines on the largest launch, built on the
+    # object's points (the slab's, in original order) with the JAX
+    # package's cell, 1.5x the transfer radius (labels.py:95)
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.ops import search
+    slab = calls[big][0]
+    pts, nrm = (t[:slab.n_valid].cpu().numpy()
+                for t in search.index_arrays(slab))
+    cell = config.LABEL_TRANSFER_STATIC_RADIUS_SCALE \
+        * config.LABEL_TRANSFER_RADIUS
+    return _engine_bench(f"K2 label transfer {big + 1}/{len(rows)}",
+                         ("nearest_gated",) + tuple(calls[big]),
+                         (pts, nrm, cell), rows[big]["ms"], phase="slice")
 
 
 def mesh_slots(n: int = 4) -> list:
@@ -1506,6 +1825,7 @@ def _mesh_bench(work: str, bench_root: str, class_file: str, slots,
 def _mesh_dpsp(bench_root: str, slots) -> None:
     """(c): 2 pairs of a bench object on the bench level-2 slab, pairs over
     dp = 2 and points over sp = 2, against the single-device loop."""
+    from rescan_tpu_torch import config
     from rescan_tpu_torch.core.pointcloud import PointCloud
     from rescan_tpu_torch.utils import synthetic
     from rescan_tpu_torch.ops import gnn, icp, search
@@ -1516,8 +1836,8 @@ def _mesh_dpsp(bench_root: str, slots) -> None:
     scene = PointCloud.from_ply(os.path.join(gt, "scan_001.ply"))
     base = PointCloud.from_ply(os.path.join(gt, "scan_000.ply"))
     lead = slots[0]
-    slab = search.build_index(scene.pos(2), normals=scene.nrm(2), tile=1024,
-                              device=lead)
+    slab = search.build_index(scene.pos(2), config.SCENE_REFINE_ICP_MAX_DIST,
+                              normals=scene.nrm(2), tile=1024, device=lead)
     L0 = base.levels[0]
     planar = {synthetic.NYU40_CLASSES.index(c) for c in ("wall", "floor")}
     # the bench's second and third objects (a chair and the table), which
@@ -1600,7 +1920,7 @@ def _mesh_smoothing(bench_root: str, lead) -> None:
         L[k][flip] = L[k][donors]
     cloud.levels[1] = {k: v.copy() for k, v in L.items()}
     t0 = time.perf_counter()
-    labels.build_smoothing_graph(cloud)
+    labels.build_smoothing_graph(cloud, lead)
     t_graph = time.perf_counter() - t0
     out, secs = {}, {}
     for engine, dev in (("native", None), ("torch", lead), ("torch", lead)):
@@ -1621,7 +1941,8 @@ def _mesh_smoothing(bench_root: str, lead) -> None:
     say("mesh", f"(d) smoothing of {len(L['instance_ids'])} level-1 points "
         f"({flip.mean():.3f} relabelled at random): torch engine on {lead} "
         f"{secs['torch']:.3f}s (second call) vs native {secs['native']:.3f}s "
-        f"(host), each including the {t_graph:.3f}s host graph build; "
+        f"(host), each including the {t_graph:.3f}s graph build (its "
+        f"radius search on the card); "
         f"agreement class {agree['class_ids']:.6f} instance "
         f"{agree['instance_ids']:.6f}; {changed:.4f} of labels changed")
 
@@ -1896,7 +2217,7 @@ def main() -> int:
         say("kernels", f"bench scans written in "
             f"{time.perf_counter() - t0:.1f}s")
         kern = phase_kernels(cuda, bench_root)
-        phase_parity(cuda, work)
+        grid_run = phase_parity(cuda, work)
         launches, single, path_rows = phase_slice(cuda, bench_root,
                                                   bench_class)
         phase_mesh(work, bench_root, bench_class, single)
@@ -1912,6 +2233,11 @@ def main() -> int:
     for k in ("fma", "score_terms"):
         err[k] = max(err[k], kern["rows"][k]["max_abs_err"])
     err["pairsum"] = max(err["pairsum"], path_rows["pairsum"]["max_abs_err"])
+    rows["grid_radius_knn"] = path_rows["grid_radius_knn"]
+    err["grid_radius_knn"] = max(err["grid_radius_knn"],
+                                 rows["grid_radius_knn"]["max_abs_err"])
+    for k, row in path_rows["label_engines"].items():
+        err[k] = max(err[k], row["max_abs_err"])
     def entry(name):
         row = rows[name]
         out = {"name": name, "route": "cuda",
@@ -1943,9 +2269,28 @@ def main() -> int:
             # runs this kernel's device function; timed standalone
             out.update(launches=launches["icp_tail"], runs_inside="icp_tail",
                        standalone_launches=launches[name])
+        if name in ("grid_nearest_gated", "dense_nearest"):
+            # off the main path (its indexes are slabs): the numbers of
+            # the scoring launch, every bench launch's beside them with
+            # K1/K2's time on the same queries
+            out["bench_launches"] = {
+                what: {k: r[name][k] for k in (
+                    "queries", "points", "cell", "ms", "plain_ms",
+                    "k1_k2_ms", "bound_ms", "bound_by", "pairs",
+                    "in_radius")}
+                for what, r in dict(
+                    kern["rows"]["engine_launches"],
+                    **{"K2 label transfer, largest":
+                       path_rows["label_engines"]}).items()}
+        if name == "grid_nearest_gated":
+            # its launches on the grid engine's small sequence (phase 4)
+            out["grid_engine_launches"] = grid_run[name]
+        if name == "grid_radius_knn":
+            out.update(hostgrid_ms=row["hostgrid_ms"],
+                       label_smooth_split_s=row["label_smooth_split_s"])
         return out
-    kernels = [entry(name)
-               for name in ("gated_min", "nearest_gated") + PORT_KERNELS]
+    kernels = [entry(name) for name in ("gated_min", "nearest_gated")
+               + PORT_KERNELS + ENGINE_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -205,12 +205,15 @@ class PointCloud:
                 # waits — measured as the grid_occupancy substage swinging
                 # 1.8->4.2 s run to run. nice +19 makes it run ONLY while
                 # the main thread blocks (device transfers/launches).
+                # On Linux a thread id names that one thread to
+                # setpriority; the id comes from the portable call, not a
+                # raw syscall number (which belongs to one architecture).
                 try:
-                    import ctypes
-                    libc = ctypes.CDLL("libc.so.6", use_errno=True)
-                    tid = libc.syscall(186)          # SYS_gettid (x86_64)
-                    libc.setpriority(0, tid, 19)     # PRIO_PROCESS
-                except Exception:
+                    import os
+                    import threading
+                    os.setpriority(os.PRIO_PROCESS,
+                                   threading.get_native_id(), 19)
+                except (AttributeError, OSError):
                     pass
                 for lvl in range(stop, config.N_LEVELS):
                     build(lvl)

@@ -429,7 +429,7 @@ def _icp_tail_ref(s4, wsum, cnt_raw, c1, T, err, active, it: int):
 
 def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
                       uobj_mask: torch.Tensor, obj_of_pair: torch.Tensor,
-                      pair_valid: torch.Tensor, index: gnn.SortedSlab,
+                      pair_valid: torch.Tensor, index: search.Index,
                       T_init: torch.Tensor, max_dist, max_angle,
                       max_iter: int = config.ICP_MAX_ITER,
                       sums: Optional[Sums] = None,
@@ -481,7 +481,7 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
 
 
 def icp_align_batched(obj_pts: torch.Tensor, obj_nrm: torch.Tensor,
-                      obj_mask: torch.Tensor, index: gnn.SortedSlab,
+                      obj_mask: torch.Tensor, index: search.Index,
                       T_init: torch.Tensor, max_dist, max_angle,
                       max_iter: int = config.ICP_MAX_ITER
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

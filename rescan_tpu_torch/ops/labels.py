@@ -29,7 +29,7 @@ from .. import config, resolve_device
 from ..core import native
 from ..io.rsdb import Placement, Rsdb
 from ..parallel import mesh as pmesh
-from . import gnn, search
+from . import gnn, hashgrid, search
 
 
 def _static_sort_key(db: Rsdb, p: Placement) -> int:
@@ -79,14 +79,15 @@ def arrangement_to_labels(db: Rsdb, scene, arrangement: Sequence[Placement],
     # (rs_pointcloud_filters.cpp:830-848)
 
     cos_gate = np.cos(np.deg2rad(config.LABEL_TRANSFER_MAX_ANGLE_DEG))
+    max_r = config.LABEL_TRANSFER_STATIC_RADIUS_SCALE * radius
     index_cache = {}
 
-    def obj_index(obj_idx: int) -> gnn.SortedSlab:
+    def obj_index(obj_idx: int) -> search.Index:
         e = index_cache.get(obj_idx)
         if e is None:
             obj = db.objects[obj_idx].cloud
-            e = search.build_index(obj.pos(lvl), normals=obj.nrm(lvl),
-                                   device=dev)
+            e = search.build_index(obj.pos(lvl), max_r,
+                                   normals=obj.nrm(lvl), device=dev)
             index_cache[obj_idx] = e
         return e
 
@@ -165,19 +166,27 @@ def arrangement_to_labels(db: Rsdb, scene, arrangement: Sequence[Placement],
     scene.levels[lvl]["instance_ids"] = ins
 
 
-def build_smoothing_graph(scene) -> Tuple[np.ndarray, np.ndarray]:
+def build_smoothing_graph(scene, device=None) -> Tuple[np.ndarray,
+                                                     np.ndarray]:
     """8-NN 0.05-radius edge graph with the reference's edge weights
-    (rspf_compute_neighborhood, rs_pointcloud_filters.cpp:674-722), on
-    the native host grid. Returns (edges (E,2) int32 deduped unordered
-    pairs, weights (E,))."""
+    (rspf_compute_neighborhood, rs_pointcloud_filters.cpp:674-722).
+    Returns (edges (E,2) int32 deduped unordered pairs, weights (E,)).
+
+    The radius search is the JAX package's CPU branch (labels.py:224-233),
+    ``hashgrid.radius_knn`` over a grid of the level-1 points, here on
+    ``device`` (its kernel on the card); the skip-self, dedup and weight
+    pass stays in the native host library, as there."""
+    dev = resolve_device(device)
     lvl = config.LABEL_LVL
     pts = scene.pos(lvl)
     nrm = scene.nrm(lvl)
     r = config.SMOOTH_RADIUS
-    grid = native.HostGrid(pts, r)
-    idx, d2, cnt = grid.radius_search(pts, r, config.SMOOTH_MAX_NN)
-    return native.smooth_graph(idx, d2, nrm, np.float32(r * r),
-                               config.SMOOTH_DIST_EXP,
+    grid = hashgrid.build_grid(pts, r, device=dev)
+    idx, d2, _ = hashgrid.radius_knn(
+        grid, torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev),
+        r, config.SMOOTH_MAX_NN, chunk=16384)
+    return native.smooth_graph(idx.cpu().numpy(), d2.cpu().numpy(), nrm,
+                               np.float32(r * r), config.SMOOTH_DIST_EXP,
                                config.SMOOTH_ANGLE_EXP)
 
 
@@ -188,7 +197,8 @@ def smooth_labels(db: Rsdb, scene, n_meanfield: int = 30,
     weighted-Potts energy (rspf_smooth_labels,
     rs_pointcloud_filters.cpp:882-989) with the engine ``abswap``
     (default; env RESCAN_SMOOTH_ENGINE overrides), ``native`` or
-    ``torch`` (alias ``jax``, which runs on ``device``)."""
+    ``torch`` (alias ``jax``). ``device`` runs the graph's radius search
+    (``build_smoothing_graph``) and the torch engine."""
     engine = engine or os.environ.get("RESCAN_SMOOTH_ENGINE", "abswap")
     if engine not in ENGINES:
         raise ValueError(f"unknown smoothing engine {engine!r}; use one of "
@@ -228,7 +238,7 @@ def smooth_labels(db: Rsdb, scene, n_meanfield: int = 30,
     cost_of_point = np.where(labels0 == 0, config.SMOOTH_COST_UNLABELLED,
                              cost_of_point).astype(np.float32)
 
-    edges, w = build_smoothing_graph(scene)
+    edges, w = build_smoothing_graph(scene, device)
     # gco receives int(w * edge_cost) as the neighbor weight, multiplied by
     # the Potts table value edge_cost (:942-966)
     pair_w = (np.floor(w * config.SMOOTH_EDGE_COST).astype(np.float32)
@@ -259,6 +269,16 @@ def smooth_labels(db: Rsdb, scene, n_meanfield: int = 30,
                                            n_meanfield, icm_masks)
     L["class_ids"] = label_to_class[labels].astype(np.int32)
     L["instance_ids"] = label_to_inst[labels].astype(np.int32)
+
+
+def potts_energy(U: np.ndarray, edges: np.ndarray, pair_w: np.ndarray,
+                 labels: np.ndarray) -> float:
+    """E(l) = sum_i U[i, l_i] + sum_(ij) w_ij [l_i != l_j] over the
+    undirected edge list — the objective every smoothing engine optimizes
+    (integer-valued by construction; used for engine comparison)."""
+    unary = float(U[np.arange(len(labels)), labels].sum())
+    cut = float(pair_w[labels[edges[:, 0]] != labels[edges[:, 1]]].sum())
+    return unary + cut
 
 
 # engine name -> implementation; "jax" names the torch engine, so

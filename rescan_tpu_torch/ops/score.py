@@ -74,7 +74,7 @@ def prep_points(obj_pts: np.ndarray, obj_nrm: np.ndarray
     return pts, nrm, mask
 
 
-def _score_terms(index: gnn.SortedSlab, pts_all: torch.Tensor,
+def _score_terms(index: search.Index, pts_all: torch.Tensor,
                  nrm_all: torch.Tensor, mask_all: torch.Tensor,
                  hyps: torch.Tensor, owner: torch.Tensor, radius, sigma
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,7 +134,7 @@ def per_point(d2: torch.Tensor, dot: torch.Tensor, found: torch.Tensor,
     return out
 
 
-def _score_multi(index: gnn.SortedSlab, pts_all: torch.Tensor,
+def _score_multi(index: search.Index, pts_all: torch.Tensor,
                  nrm_all: torch.Tensor, mask_all: torch.Tensor,
                  hyps: torch.Tensor, owner: torch.Tensor, radius,
                  sigma) -> torch.Tensor:
@@ -167,7 +167,7 @@ class ScoreStream:
     far-translated hypotheses, whose query blocks are near no tile.
     """
 
-    def __init__(self, index: gnn.SortedSlab, radius: float, sigma: float,
+    def __init__(self, index: search.Index, radius: float, sigma: float,
                  mesh=None):
         self.index = index
         self.radius = radius
@@ -267,7 +267,7 @@ class ScoreStream:
         return results
 
 
-def score_requests(index: gnn.SortedSlab,
+def score_requests(index: search.Index,
                    requests: Sequence[Tuple[np.ndarray, np.ndarray,
                                             np.ndarray]],
                    radius, sigma, mesh=None) -> List[np.ndarray]:

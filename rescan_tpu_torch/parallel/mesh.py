@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import gnn, icp, pairsum, score, search
+from ..ops import dense_nn, gnn, hashgrid, icp, pairsum, score, search
 
 
 def active_device_count() -> int:
@@ -138,8 +138,8 @@ class Mesh:
             torch.cuda.synchronize(d)
 
     def replicate(self, obj):
-        """Per-slot replicas of a tensor, a tuple of tensors or a
-        SortedSlab, copied once per device and kept while the mesh
+        """Per-slot replicas of a tensor, a tuple of tensors or an index
+        (ops/search.py), copied once per device and kept while the mesh
         lives."""
         if isinstance(obj, tuple):
             parts = [self.replicate(x) for x in obj]
@@ -205,7 +205,8 @@ class Mesh:
 
 
 def _to_device(obj, dev: torch.device):
-    if isinstance(obj, gnn.SortedSlab):
+    if isinstance(obj, (gnn.SortedSlab, hashgrid.HashGrid,
+                        dense_nn.DenseIndex)):
         return obj.to(dev)
     return torch.as_tensor(obj).to(dev)
 

@@ -447,6 +447,7 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
                                config.SCORE_SEARCH_RADII[slvl],
                                scene_nrm=scn_cloud.nrm(slvl))
         scene_grid = search.build_index(scn_cloud.pos(slvl),
+                                        config.SCORE_SEARCH_RADII[slvl],
                                         normals=scn_cloud.nrm(slvl),
                                         device=dev)
         occupancy = occ_future.result()
@@ -476,6 +477,7 @@ def run(rsdb_filename: str, scene_filename: str, output_filename: str,
 
     def _icp_prep():
         grid = search.build_index(scn_cloud.pos(icp_lvl),
+                                  config.REFINE_ICP_MAX_DIST,
                                   normals=scn_cloud.nrm(icp_lvl),
                                   tile=1024, device=dev)
         if not dyn_objs:

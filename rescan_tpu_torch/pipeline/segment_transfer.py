@@ -115,8 +115,9 @@ def refine_alignment_to_scene(db: rsdbio.Rsdb, scene_idx: int,
         return
     scene = db.scenes[scene_idx].cloud
     lvl = config.SCENE_REFINE_ICP_LVL
-    grid = search.build_index(scene.pos(lvl), normals=scene.nrm(lvl),
-                              tile=1024, device=dev)
+    grid = search.build_index(scene.pos(lvl),
+                              config.SCENE_REFINE_ICP_MAX_DIST,
+                              normals=scene.nrm(lvl), tile=1024, device=dev)
     # indexed batch over ALL dynamic objects with the same n_min floor as
     # pose_proposal's refinement (pairs gather their rows on the device)
     uniq = [i for i in range(len(db.objects)) if not db.is_object_static(i)]
@@ -189,8 +190,10 @@ def augment_database(db: rsdbio.Rsdb, scene_idx: int,
         if not db.is_object_static(plc.object_idx):
             t0 = time.perf_counter()
             model = obj.cloud
-            grid = search.build_index(model.pos(0), normals=model.nrm(0),
-                                      tile=1024, device=dev)
+            grid = search.build_index(model.pos(0),
+                                      config.AUGMENT_ICP_MAX_DIST,
+                                      normals=model.nrm(0), tile=1024,
+                                      device=dev)
             pts_b, nrm_b, mask_b = (torch.from_numpy(a).to(dev) for a in
                                     icp.pad_batch([extracted.pos(0)],
                                                   [extracted.nrm(0)]))

@@ -1,7 +1,8 @@
-// Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu
-// and pairsum.cu (with xla_math.cuh) use, so that their kernel logic can
-// be built with g++ and run on the CPU (tests/test_torch_gnn_emulated.py,
-// tests/test_torch_pairsum.py). In emulate_launch a block is one warp: 32
+// Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu,
+// pairsum.cu (with xla_math.cuh) and hashgrid.cu use, so that their kernel
+// logic can be built with g++ and run on the CPU
+// (tests/test_torch_gnn_emulated.py, tests/test_torch_pairsum.py,
+// tests/test_torch_hashgrid.py, tests/test_torch_dense_nn.py). In emulate_launch a block is one warp: 32
 // std::threads that meet at a barrier for every warp collective; in
 // emulate_block_launch a block of 32 threads is the same, and a larger
 // block (no warp collective) is one fiber a thread on the calling thread,
@@ -39,6 +40,7 @@
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -80,6 +82,14 @@ inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __fma_rn(double a, double b, double c) { return fma(a, b, c); }
 inline float __double2float_rn(double a) { return static_cast<float>(a); }
 inline int __double2int_rz(double a) { return static_cast<int>(a); }
+// cvt.rmi.s32.f32: floor, saturated to int32, NaN to 0
+inline int __float2int_rd(float a) {
+  if (a != a) return 0;
+  const float f = floorf(a);
+  if (f >= 2147483648.0f) return INT32_MAX;
+  if (f < -2147483648.0f) return INT32_MIN;
+  return static_cast<int>(f);
+}
 inline float __uint_as_float(unsigned v) {
   float f;
   memcpy(&f, &v, 4);

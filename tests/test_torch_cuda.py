@@ -938,3 +938,113 @@ def test_icp_step_makes_no_host_sync(cuda):
     assert pairsum.LAUNCHES["icp_head"] == len(icp.HEAD_FORMS)
     assert pairsum.LAUNCHES["pairsum"] == 4
     assert pairsum.LAUNCHES["icp_tail"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the grid and dense engines (ops/hashgrid.py, ops/dense_nn.py)
+# ---------------------------------------------------------------------------
+
+def grid_case(name: str):
+    """(points, normals, queries, query normals, radius, cap): random
+    points with duplicates and exact hits, a lattice of exact distance
+    ties, queries outside the grid and FAR-padded, or runs cut by a small
+    cap."""
+    rng = np.random.default_rng(23)
+    cap, radius = None, 0.1
+    if name == "lattice":
+        g = np.arange(12, dtype=np.float32) / 16
+        pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        pts = pts[rng.permutation(len(pts))]
+        q = np.concatenate([pts[:300], pts[300:600] + np.float32(1 / 32)])
+        radius = 0.125
+    else:
+        pts = rng.uniform(0, 1.5, (20000, 3)).astype(np.float32)
+        pts[10000:12000] = pts[:2000]
+        q = rng.uniform(-0.2, 1.7, (5003, 3)).astype(np.float32)
+        q[:500] = pts[:500]
+        if name == "outside":
+            q[500:504] = [[1e12, 0.5, 0.5], [0.5, -3e9, 0.5],
+                          [-gnn.FAR] * 3, [0.5, 0.5, 1.65]]
+            q[-200:] = gnn.FAR
+        if name == "small_cap":
+            cap = 4
+    nrm = rng.normal(size=(len(pts), 3)).astype(np.float32)
+    qn = rng.normal(size=(len(q), 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
+    return pts, nrm, q, qn, radius, cap
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+GRID_CASES = ("random", "lattice", "outside", "small_cap")
+
+
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_radius_knn_bit_identical_to_plain(cuda, case, k):
+    from rescan_tpu_torch.ops import hashgrid
+    pts, nrm, q, _, radius, cap = grid_case(case)
+    grid = hashgrid.build_grid(pts, radius, normals=nrm, cap=cap,
+                               device=cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    n0 = hashgrid.LAUNCHES["grid_radius_knn"]
+    got = hashgrid.radius_knn(grid, qt, radius, k)
+    assert hashgrid.LAUNCHES["grid_radius_knn"] == n0 + 1
+    _same(got, hashgrid.radius_knn_ref(grid, qt, radius, k))
+    assert (got[2] > 0).sum() > 100
+
+
+@pytest.mark.parametrize("use_abs,gate", [(False, 0.5), (True, -1.0)])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_nearest_gated_bit_identical_to_plain(cuda, case, use_abs,
+                                                   gate):
+    from rescan_tpu_torch.ops import hashgrid
+    pts, nrm, q, qn, radius, cap = grid_case(case)
+    grid = hashgrid.build_grid(pts, radius, normals=nrm, cap=cap,
+                               device=cuda)
+    qt, qnt = torch.from_numpy(q).to(cuda), torch.from_numpy(qn).to(cuda)
+    n0 = hashgrid.LAUNCHES["grid_nearest_gated"]
+    got = hashgrid.nearest_gated(grid, qt, qnt, radius, gate, use_abs)
+    assert hashgrid.LAUNCHES["grid_nearest_gated"] == n0 + 1
+    _same(got, hashgrid.nearest_gated_ref(grid, qt, qnt, radius, gate,
+                                          use_abs))
+    assert (got[0] >= 0).sum() > 100
+
+
+@pytest.mark.parametrize("use_abs,gate", [(False, 0.5), (True, -1.0)])
+@pytest.mark.parametrize("case", ("random", "lattice", "outside"))
+def test_dense_kernel_bit_identical_to_plain(cuda, case, use_abs, gate):
+    from rescan_tpu_torch.ops import dense_nn
+    pts, nrm, q, qn, radius, _ = grid_case(case)
+    index = dense_nn.build_dense_index(pts, nrm, device=cuda)
+    qt, qnt = torch.from_numpy(q).to(cuda), torch.from_numpy(qn).to(cuda)
+    n0 = dense_nn.LAUNCHES["dense_nearest"]
+    got = dense_nn.nearest_gated_dense(index, qt, qnt, radius, gate, use_abs)
+    assert dense_nn.LAUNCHES["dense_nearest"] == n0 + 1
+    _same(got, dense_nn.nearest_gated_dense_ref(index, qt, qnt, radius, gate,
+                                                use_abs))
+    assert (got[0] >= 0).sum() > 100
+
+
+def test_smoothing_graph_on_card_matches_cpu(cuda):
+    """The smoothing graph's search on the card gives the CPU's graph."""
+    from types import SimpleNamespace
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.ops import hashgrid, labels
+    pts, nrm, _, _, _, _ = grid_case("random")
+    lvl = config.LABEL_LVL
+    scene = SimpleNamespace(pos=lambda l: pts if l == lvl else None,
+                            nrm=lambda l: nrm if l == lvl else None)
+    n0 = hashgrid.LAUNCHES["grid_radius_knn"]
+    e_card, w_card = labels.build_smoothing_graph(scene, device=cuda)
+    assert hashgrid.LAUNCHES["grid_radius_knn"] == n0 + 1
+    e_cpu, w_cpu = labels.build_smoothing_graph(scene, device="cpu")
+    np.testing.assert_array_equal(e_card, e_cpu)
+    np.testing.assert_array_equal(w_card.view(np.int32), w_cpu.view(np.int32))

@@ -531,3 +531,44 @@ def test_fuse_models_copy(tmp_path):
     assert logs[0] == logs[1] and "TRIMMER_CMD" in logs[0]
     _same_dirs(tmp_path / "rescan_tpu.pipeline.fuse_models",
                tmp_path / "rescan_tpu_torch.pipeline.fuse_models")
+
+
+@pytest.mark.parametrize("cap", [None, 2])
+def test_build_grid_copy(room, cap):
+    """hashgrid.build_grid's host build: the same sorted points, normals,
+    permutation, cell offsets, origin, dims and cap, on the room's
+    level-1 points and on no points at all."""
+    from rescan_tpu.ops import hashgrid as jh
+    from rescan_tpu_torch.ops import hashgrid as th
+    ply, _ = room
+    cloud = importlib.import_module(f"{PORT}.core.pointcloud") \
+        .PointCloud.from_ply(ply)
+    for pts, nrm in ((cloud.pos(1), cloud.nrm(1)),
+                     (np.zeros((0, 3), np.float32), None)):
+        a = jh.build_grid(pts, 0.05, normals=nrm, cap=cap)
+        b = th.build_grid(pts, 0.05, normals=nrm, cap=cap, device="cpu")
+        assert (a.cell, a.dims, a.cap) == (b.cell, b.dims, b.cap)
+        for f in ("points", "normals", "perm", "cell_start", "origin"):
+            x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        assert b.origin_host == tuple(np.asarray(a.origin).tolist())
+
+
+@pytest.mark.parametrize("tile", [2048, 256])
+def test_build_dense_index_copy(room, tile):
+    """dense_nn.build_dense_index's host build: the same centred, padded
+    points and normals, count and centre."""
+    from rescan_tpu.ops import dense_nn as jd
+    from rescan_tpu_torch.ops import dense_nn as td
+    ply, _ = room
+    cloud = importlib.import_module(f"{PORT}.core.pointcloud") \
+        .PointCloud.from_ply(ply)
+    for nrm in (cloud.nrm(1), None):
+        a = jd.build_dense_index(cloud.pos(1), nrm, tile=tile)
+        b = td.build_dense_index(cloud.pos(1), nrm, tile=tile, device="cpu")
+        assert int(a.n_valid) == b.n_valid and a.tile == b.tile
+        for f in ("points", "normals", "center"):
+            x, y = np.asarray(getattr(a, f)), getattr(b, f).numpy()
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)

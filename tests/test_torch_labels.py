@@ -99,15 +99,48 @@ def test_arrangement_to_labels_matches_jax(room, which):
 
 
 def test_smoothing_graph_matches_jax(room):
-    """The port builds the graph on the native HostGrid; the JAX
-    package's CPU branch uses hashgrid.radius_knn. Same edges, same
-    weights."""
+    """Both packages search with hashgrid.radius_knn (the JAX package's
+    CPU branch; the port's on the scene's device, here the CPU): the
+    same edges in the same order, the same weights, bit for bit."""
     ej, wj = jlabels.build_smoothing_graph(room["rescan_tpu"][1])
-    et, wt = tlabels.build_smoothing_graph(room["rescan_tpu_torch"][1])
-    oj = np.lexsort((ej[:, 1], ej[:, 0]))
+    et, wt = tlabels.build_smoothing_graph(room["rescan_tpu_torch"][1],
+                                           device="cpu")
+    np.testing.assert_array_equal(et, ej)
+    np.testing.assert_array_equal(wt.view(np.int32), wj.view(np.int32))
+
+
+def test_smoothing_graph_against_the_host_grid(room):
+    """The native HostGrid's search (ordered by (d2, index)) gives the
+    same edges up to ties at the eighth neighbour, and weights within
+    rtol 1e-6 (its d2 adds (dx^2 + dy^2) + dz^2 without FMAs)."""
+    from rescan_tpu_torch.core import native
+    scene = room["rescan_tpu_torch"][1]
+    pts, nrm = scene.pos(config.LABEL_LVL), scene.nrm(config.LABEL_LVL)
+    r = config.SMOOTH_RADIUS
+    idx, d2, _ = native.HostGrid(pts, r).radius_search(
+        pts, r, config.SMOOTH_MAX_NN)
+    eh, wh = native.smooth_graph(idx, d2, nrm, np.float32(r * r),
+                                 config.SMOOTH_DIST_EXP,
+                                 config.SMOOTH_ANGLE_EXP)
+    et, wt = tlabels.build_smoothing_graph(scene, device="cpu")
+    oh = np.lexsort((eh[:, 1], eh[:, 0]))
     ot = np.lexsort((et[:, 1], et[:, 0]))
-    np.testing.assert_array_equal(et[ot], ej[oj])
-    np.testing.assert_allclose(wt[ot], wj[oj], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(et[ot], eh[oh])
+    np.testing.assert_allclose(wt[ot], wh[oh], rtol=1e-6, atol=0)
+
+
+def test_potts_energy_matches_jax(room):
+    """The port's copy of the diagnostic energy, on the room's graph with
+    random labels and unaries."""
+    rng = np.random.default_rng(5)
+    edges, w = tlabels.build_smoothing_graph(room["rescan_tpu_torch"][1],
+                                             device="cpu")
+    n = int(edges.max()) + 1
+    U = rng.integers(0, 30, (n, 6)).astype(np.float32)
+    lab = rng.integers(0, 6, n)
+    pair_w = np.floor(w * config.SMOOTH_EDGE_COST) * config.SMOOTH_EDGE_COST
+    assert tlabels.potts_energy(U, edges, pair_w, lab) == \
+        jlabels.potts_energy(U, edges, pair_w, lab)
 
 
 @pytest.mark.parametrize("engine", ["abswap", "native", "jax"])
@@ -192,7 +225,7 @@ def _potts(db, scene_before, scene_after):
                     config.SMOOTH_COST_STATIC, config.SMOOTH_COST_DYNAMIC)
     cost = np.where(own == 0, config.SMOOTH_COST_UNLABELLED, cost)
     U = cost[:, None] * (1.0 - np.eye(n_labels)[own])
-    edges, w = tlabels.build_smoothing_graph(scene_before)
+    edges, w = tlabels.build_smoothing_graph(scene_before, device="cpu")
     pair_w = np.floor(w * config.SMOOTH_EDGE_COST) * config.SMOOTH_EDGE_COST
     return jlabels.potts_energy(U, edges, pair_w, got)
 

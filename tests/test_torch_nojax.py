@@ -30,14 +30,15 @@ import numpy as np
 import torch
 import rescan_tpu_torch
 from rescan_tpu_torch import sequences
-from rescan_tpu_torch.ops import gnn, icp, labels, score, search
+from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, icp, labels
+from rescan_tpu_torch.ops import score, search
 from rescan_tpu_torch.parallel import mesh
 from rescan_tpu_torch.pipeline import driver, pose_proposal, segment_transfer
 
 rng = np.random.default_rng(0)
 pts = rng.uniform(0, 1, (2000, 3)).astype(np.float32)
 nrm = np.tile(np.float32([0, 1, 0]), (2000, 1))
-index = search.build_index(pts, normals=nrm, tile=1024, device="cpu")
+index = search.build_index(pts, 0.1, normals=nrm, tile=1024, device="cpu")
 s = score.score_requests(index, [(pts[:200] - 0.5, nrm[:200],
                                   np.eye(4, dtype=np.float32)[None])],
                          0.1, 0.1)[0]
@@ -61,6 +62,22 @@ T1 = icp.icp_align_indexed(pb, nb, mb, torch.zeros(1, dtype=torch.long),
                            single=False)[0]
 assert np.array_equal(sm, s), (sm, s)
 assert np.array_equal(Tm, T1.numpy()), (Tm, T1)
+# the other two engines, through the same entry points
+grid = search.build_index(pts, 0.1, normals=nrm, prefer_dense=False,
+                          device="cpu")
+sg = score.score_requests(grid, [(pts[:200] - 0.5, nrm[:200],
+                                  np.eye(4, dtype=np.float32)[None])],
+                          0.1, 0.1)[0]
+Tg, _ = icp.icp_align_batched(pb, nb, mb, grid, torch.eye(4)[None], 0.1,
+                              np.deg2rad(60.0))
+dense = dense_nn.build_dense_index(pts, nrm, device="cpu")
+di, _, _ = search.nearest_gated(dense, torch.from_numpy(pts[:50]),
+                                torch.from_numpy(nrm[:50]), 0.1, 0.5)
+_, _, cnt = hashgrid.radius_knn(grid, torch.from_numpy(pts[:50]), 0.05, 8)
+assert 0.0 < sg[0] <= 1.0 and torch.isfinite(Tg).all(), (sg, Tg)
+assert (di.numpy() == np.arange(50)).all() and (cnt > 0).all()
+assert min(hashgrid.PLAIN_CALLS.values()) > 0
+assert dense_nn.PLAIN_CALLS["dense_nearest"] > 0
 from rescan_tpu_torch.core import native
 from rescan_tpu_torch.pipeline import create_eval_files, seg2rsdb
 from rescan_tpu_torch.eval import (instance_transfer, semantic_instance,
@@ -127,7 +144,8 @@ def test_port_sources_import_no_jax_package():
     assert {os.path.join("rescan_tpu_torch", *f.split("/")) for f in (
         "eval/semantic_label.py", "eval/instance_transfer.py",
         "eval/semantic_instance.py", "viewer/render.py", "viewer/cli.py",
-        "ops/distance_field.py")} <= set(found)
+        "ops/distance_field.py", "ops/hashgrid.py",
+        "ops/dense_nn.py")} <= set(found)
     assert not {f: b for f, b in found.items() if b}
 
 
@@ -153,6 +171,18 @@ def test_kernel_loader_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(gnn, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         gnn.load_library()
+
+
+def test_grid_kernel_loader_without_nvcc_raises(tmp_path, monkeypatch):
+    """The grid and dense kernels' library too: no nvcc, a clear error."""
+    from torch.utils import cpp_extension
+    from rescan_tpu_torch.ops import hashgrid
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(gnn, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(hashgrid, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        hashgrid.load_library()
 
 
 def test_cuda_device_without_card_raises():
