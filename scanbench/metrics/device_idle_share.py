@@ -1,0 +1,8 @@
+"""The share of the traced window in which no operation ran on the card,
+in per cent (busy time as the union of the device's intervals)."""
+
+
+def read(record):
+    if "busy_s" not in record:
+        return None
+    return 100.0 * (1.0 - record["busy_s"] / record["window_s"])
