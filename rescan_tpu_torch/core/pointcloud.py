@@ -26,6 +26,7 @@ import numpy as np
 
 from .. import config
 from ..io import ply as plyio
+from ..utils import timing
 from . import native
 
 Level = Dict[str, np.ndarray]
@@ -61,7 +62,8 @@ class _LazyLevels(list):
         with self._lock:
             f, self.future = self.future, None
         if f is not None:
-            f.result()
+            with timing.span("levels"):
+                f.result()
 
     def __getitem__(self, i):
         if self.future is not None and (
@@ -172,7 +174,12 @@ class PointCloud:
         ``defer_from``: levels >= this are built on a background thread
         (joined transparently on first access — _LazyLevels). Each level
         subsamples level 0 independently, so the deferred results are
-        bit-identical to the eager ones."""
+        bit-identical to the eager ones. The main thread's part is the
+        stage's ``levels`` span (utils/timing.py)."""
+        with timing.span("levels"):
+            self._compute_levels(defer_from)
+
+    def _compute_levels(self, defer_from: Optional[int]) -> None:
         if isinstance(self.levels, _LazyLevels):
             self.levels.join()
         self._invalidate()

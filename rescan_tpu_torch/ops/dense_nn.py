@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import timing
 from . import gnn, hashgrid
 
 LAUNCHES = {"dense_nearest": 0}
@@ -159,7 +160,7 @@ def _scan(index, qc, q_nrm, r2, thr, use_abs_dot, best, stats):
     bound = 2.0 * pmax + 1.0 + r2 ** 0.5
     live = (qnorm <= bound).nonzero()[:, 0]
     reach2 = r2 * 1.0001 + 1e-5 * (bound + pmax) ** 2 + 1e-6
-    grid = hashgrid.build_grid(P.cpu().numpy(), 1.01 * reach2 ** 0.5,
+    grid = hashgrid.build_grid(timing.to_host(P), 1.01 * reach2 ** 0.5,
                                device=dev)
     step = 65536 if dev.type == "cuda" else 4096
     for s0 in range(0, live.numel(), step):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import count_if_cpu, resolve_device
+from ..utils import timing
 
 
 def _as_f32(x, dev) -> torch.Tensor:
@@ -64,8 +65,8 @@ def build_distance_field(points, voxel: float = 0.05, max_dist: float = 1.0,
     count_if_cpu("distance_field.build_distance_field", dev)
     pts = _as_f32(points, dev)
     pad = int(np.ceil(max_dist / voxel)) + 1
-    lo = pts.min(dim=0).values.cpu().numpy()
-    hi = pts.max(dim=0).values.cpu().numpy()
+    lo = timing.to_host(pts.min(dim=0).values)
+    hi = timing.to_host(pts.max(dim=0).values)
     origin = lo - pad * voxel
     res = (np.ceil((hi - origin) / voxel).astype(np.int64) + pad + 1)
     dist = torch.full(tuple(int(r) for r in res), 1e9, dtype=torch.float32,

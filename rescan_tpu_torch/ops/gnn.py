@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import timing
 
 # Far-sentinel coordinate for padding queries/points (pallas_nn.py:118).
 FAR = 1e6
@@ -141,15 +142,17 @@ def slab_from_numpy(slab, tile_bounds, perm, n_valid, center, tile: int,
     dev = resolve_device(device)
     if int(tile) % RUN:
         raise ValueError(f"slab tile {tile} is not a multiple of {RUN}")
-    slab_t = torch.tensor(np.asarray(slab, np.float32)).to(dev)
-    perm_t = torch.tensor(np.asarray(perm, np.int32)).to(dev)
+    slab_t = timing.to_device(torch.tensor(np.asarray(slab, np.float32)),
+                              dev)
+    perm_t = timing.to_device(torch.tensor(np.asarray(perm, np.int32)), dev)
     return SortedSlab(
         slab=slab_t,
-        tile_bounds=torch.tensor(np.asarray(tile_bounds,
-                                               np.float32)).to(dev),
+        tile_bounds=timing.to_device(
+            torch.tensor(np.asarray(tile_bounds, np.float32)), dev),
         perm=perm_t,
         n_valid=int(n_valid),
-        center=torch.tensor(np.asarray(center, np.float32)).to(dev),
+        center=timing.to_device(
+            torch.tensor(np.asarray(center, np.float32)), dev),
         tile=int(tile),
         run_bounds=run_bounds_of(slab_t, perm_t))
 

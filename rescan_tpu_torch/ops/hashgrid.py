@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import timing
 from . import gnn
 
 # Kernel launches per wrapper, and calls of the plain versions (as
@@ -124,11 +125,13 @@ def build_grid(points: np.ndarray, cell: float,
            else np.asarray(normals, dtype=np.float32))
     mn = np.asarray(mn, np.float32)
     return HashGrid(
-        points=torch.from_numpy(np.ascontiguousarray(pts[order])).to(dev),
-        normals=torch.from_numpy(np.ascontiguousarray(nrm[order])).to(dev),
-        perm=torch.from_numpy(order).to(dev),
-        cell_start=torch.from_numpy(cell_start).to(dev),
-        origin=torch.from_numpy(mn.copy()).to(dev),
+        points=timing.to_device(
+            torch.from_numpy(np.ascontiguousarray(pts[order])), dev),
+        normals=timing.to_device(
+            torch.from_numpy(np.ascontiguousarray(nrm[order])), dev),
+        perm=timing.to_device(torch.from_numpy(order), dev),
+        cell_start=timing.to_device(torch.from_numpy(cell_start), dev),
+        origin=timing.to_device(torch.from_numpy(mn.copy()), dev),
         cell=float(cell), dims=dims, cap=int(cap),
         origin_host=tuple(float(v) for v in mn))
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils import timing
 from . import gnn, lu6, pairsum, search, xla_math
 from .pairsum import BLOCKED, BLOCKED_TAIL, CHAIN, ONE, WINDOW
 
@@ -469,7 +470,7 @@ def icp_align_indexed(uobj_pts: torch.Tensor, uobj_nrm: torch.Tensor,
     # all-padding rows start inactive
     active = sums(obj_mask.float()[..., None], [(WINDOW, 0, ONE)])[:, 0] > 0
     it = 0
-    while it < max_iter and bool(active.any()):
+    while it < max_iter and bool(timing.to_host(active.any())):
         T, err, active = _icp_step(obj_pts, obj_nrm, obj_mask, index,
                                    scene_pts, scene_nrm, T, err, dist,
                                    active, it, cos_gate, sums=sums,

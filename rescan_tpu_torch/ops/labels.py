@@ -29,6 +29,7 @@ from .. import config, resolve_device
 from ..core import native
 from ..io.rsdb import Placement, Rsdb
 from ..parallel import mesh as pmesh
+from ..utils import timing
 from . import gnn, hashgrid, search
 
 
@@ -128,8 +129,10 @@ def arrangement_to_labels(db: Rsdb, scene, arrangement: Sequence[Placement],
                                                   -1.0, use_abs_dot=True)
             else:
                 res = search.nearest_gated(
-                    index, torch.from_numpy(np.ascontiguousarray(qc)).to(dev),
-                    torch.from_numpy(np.ascontiguousarray(qnc)).to(dev),
+                    index, timing.to_device(
+                        torch.from_numpy(np.ascontiguousarray(qc)), dev),
+                    timing.to_device(
+                        torch.from_numpy(np.ascontiguousarray(qnc)), dev),
                     r, -1.0, use_abs_dot=True)
             pend.append((i, cand, res))
         return pend
@@ -138,9 +141,9 @@ def arrangement_to_labels(db: Rsdb, scene, arrangement: Sequence[Placement],
         for i, cand, res in pend:
             idx, d2, dot = mesh.gather(res) if sharded else res
             m = len(cand)
-            idx = idx[:m].cpu().numpy()
-            nd2 = d2[:m].cpu().numpy()
-            dot = dot[:m].cpu().numpy()
+            idx = timing.to_host(idx[:m])
+            nd2 = timing.to_host(d2[:m])
+            dot = timing.to_host(dot[:m])
             hit = idx >= 0
             ci, nd2, dot = cand[hit], nd2[hit], dot[hit]
             better = nd2 < min_d2[ci]
@@ -183,9 +186,10 @@ def build_smoothing_graph(scene, device=None) -> Tuple[np.ndarray,
     r = config.SMOOTH_RADIUS
     grid = hashgrid.build_grid(pts, r, device=dev)
     idx, d2, _ = hashgrid.radius_knn(
-        grid, torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev),
+        grid, timing.to_device(
+            torch.from_numpy(np.ascontiguousarray(pts, np.float32)), dev),
         r, config.SMOOTH_MAX_NN, chunk=16384)
-    return native.smooth_graph(idx.cpu().numpy(), d2.cpu().numpy(), nrm,
+    return native.smooth_graph(timing.to_host(idx), timing.to_host(d2), nrm,
                                np.float32(r * r), config.SMOOTH_DIST_EXP,
                                config.SMOOTH_ANGLE_EXP)
 
@@ -344,8 +348,8 @@ def meanfield_icm_torch(cost_of_point: np.ndarray, labels0: np.ndarray,
     rows = np.arange(n)[:, None]
     nb = np.where(has, nbr[at] if len(nbr) else rows, rows)
     wt = np.where(has, w2[at] if len(w2) else 0.0, 0.0).astype(np.float32)
-    nb = torch.from_numpy(nb.astype(np.int64)).to(dev)
-    wt = torch.from_numpy(wt).to(dev)
+    nb = timing.to_device(torch.from_numpy(nb.astype(np.int64)), dev)
+    wt = timing.to_device(torch.from_numpy(wt), dev)
     block = max(1, _NBR_BLOCK // (D * n_labels))
 
     def nbr_sum(X: torch.Tensor) -> torch.Tensor:
@@ -353,17 +357,19 @@ def meanfield_icm_torch(cost_of_point: np.ndarray, labels0: np.ndarray,
         return torch.cat([(wt[s:s + block, :, None] * X[nb[s:s + block]])
                           .sum(1) for s in range(0, n, block)])
 
-    own = torch.from_numpy(labels0.astype(np.int64)).to(dev)
+    own = timing.to_device(torch.from_numpy(labels0.astype(np.int64)), dev)
     Q = torch.nn.functional.one_hot(own, n_labels).to(torch.float32)
-    U = torch.from_numpy(cost_of_point).to(dev)[:, None] * (1.0 - Q)
+    U = timing.to_device(torch.from_numpy(cost_of_point), dev)[:, None] \
+        * (1.0 - Q)
     wsum = wt.sum(1)[:, None]
     for _ in range(n_meanfield):
         E = U + (wsum - nbr_sum(Q))
         Q = 0.5 * Q + 0.5 * torch.softmax(-E / 4.0, dim=1)
     lab = torch.argmax(Q, dim=1)
-    masks = torch.from_numpy(np.ascontiguousarray(icm_masks)).to(dev)
+    masks = timing.to_device(
+        torch.from_numpy(np.ascontiguousarray(icm_masks)), dev)
     for k in range(len(masks)):
         oh = torch.nn.functional.one_hot(lab, n_labels).to(torch.float32)
         E = U + (wsum - nbr_sum(oh))
         lab = torch.where(masks[k], torch.argmin(E, dim=1), lab)
-    return lab.to(torch.int32).cpu().numpy()
+    return timing.to_host(lab.to(torch.int32))

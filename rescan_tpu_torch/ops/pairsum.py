@@ -100,6 +100,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import gnn
 
 (WINDOW, CHAIN, BLOCKED, BLOCKED_TAIL, LANES, LANES_TAIL, FOLDED,
@@ -420,8 +421,8 @@ def _chain(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor,
         return acc
     p = a.double() * b.double()       # exact
     # a step whose products are all zero leaves every accumulator as it is
-    live = np.flatnonzero((p != 0).movedim(-2, 0).reshape(p.shape[-2], -1)
-                          .any(1).cpu().numpy())
+    live = np.flatnonzero(timing.to_host(
+        (p != 0).movedim(-2, 0).reshape(p.shape[-2], -1).any(1)))
     start = acc.double()
     # the f32 fma of each step as the f64 sum rounded to f32; where one of
     # those sums is odd (``_odd_sums``) the chain is redone with
@@ -431,7 +432,7 @@ def _chain(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor,
         s = p[..., i, :] + acc
         acc = s.float().double()
         sums.append(s)
-    if sums and bool(_odd_sums(torch.stack(sums)).any()):
+    if sums and bool(timing.to_host(_odd_sums(torch.stack(sums)).any())):
         acc = start
         for i in live:
             acc = gnn._sum_to_f32(p[..., i, :], acc).double()

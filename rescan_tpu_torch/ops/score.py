@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils import timing
 from . import gnn, icp, pairsum, search, xla_math
 
 # the sum of a hypothesis's per-point scores: jnp.sum's order
@@ -192,12 +193,14 @@ class ScoreStream:
     def _launch(self, g: dict, hyps: np.ndarray, owners: np.ndarray) -> None:
         dev = self.index.device
         if g["table"] is None:
-            g["table"] = tuple(torch.from_numpy(np.stack(g[k])).to(dev)
-                               for k in ("pts", "nrm", "mask"))
+            g["table"] = tuple(timing.to_device(torch.from_numpy(
+                np.stack(g[k])), dev) for k in ("pts", "nrm", "mask"))
         if self.mesh is None:
             g["launched"].append((len(hyps), _score_multi(
-                self.index, *g["table"], torch.from_numpy(hyps).to(dev),
-                torch.from_numpy(owners).to(dev), self.radius, self.sigma)))
+                self.index, *g["table"],
+                timing.to_device(torch.from_numpy(hyps), dev),
+                timing.to_device(torch.from_numpy(owners), dev),
+                self.radius, self.sigma)))
             return
         from ..parallel import mesh as pmesh
         nd = self.mesh.size
@@ -255,8 +258,8 @@ class ScoreStream:
         results: List[np.ndarray] = [np.zeros(0, np.float32)] * self._n_req
         for pp, g in sorted(self._groups.items()):
             self._drain(g, pp, full_only=False)
-            scores = (torch.cat([self._read(r)[:n] for n, r in
-                                 g["launched"]]).cpu().numpy()
+            scores = (timing.to_host(torch.cat([self._read(r)[:n] for n, r
+                                                in g["launched"]]))
                       if g["launched"] else np.zeros(0, np.float32))
             offset = 0
             for req_idx, n_h in g["req"]:

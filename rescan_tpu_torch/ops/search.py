@@ -22,6 +22,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import dense_nn, gnn, hashgrid
 
 Index = Union[gnn.SortedSlab, hashgrid.HashGrid, dense_nn.DenseIndex]
@@ -79,9 +80,11 @@ def index_arrays(index: Index) -> Tuple[torch.Tensor, torch.Tensor]:
     if isinstance(index, dense_nn.DenseIndex):
         return dense_nn.index_arrays(index)
     valid = index.perm >= 0
-    rows = index.perm[valid].long()
-    pts = index.slab[0:3, valid].T + index.center[None, :]
-    nrm = index.slab[4:7, valid].T
+    # each boolean-mask gather waits for its count of rows
+    with timing.host_wait(valid.device, n=3):
+        rows = index.perm[valid].long()
+        pts = index.slab[0:3, valid].T + index.center[None, :]
+        nrm = index.slab[4:7, valid].T
     n = max(index.n_valid, 1)
     out_p = pts.new_zeros(n, 3)
     out_n = nrm.new_zeros(n, 3)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as pmesh
+from ..utils import timing
 from . import create_eval_files, pose_proposal, seg2rsdb, segment_transfer
 from .fuse_models import fuse_models
 
@@ -157,7 +158,8 @@ def main(argv=None) -> int:
                     "byte-identical either way")
     ap.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler chrome trace into this "
-                    "directory")
+                    "directory, with the stages' spans as ranges "
+                    "(rescan.<stage>.<span>)")
     ap.add_argument("--device", default=None,
                     help="torch device, e.g. cpu or cuda:1 (default: every "
                     "visible card, capped by RESCAN_DEVICES)")
@@ -178,6 +180,7 @@ def main(argv=None) -> int:
         if devs[0].type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
+        timing.profiler_ranges(True)
         prof.__enter__()
     try:
         base = os.path.dirname(args.scene_list)
@@ -191,6 +194,7 @@ def main(argv=None) -> int:
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
+            timing.profiler_ranges(False)
             os.makedirs(args.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(args.profile_dir,
                                                   "trace.json"))

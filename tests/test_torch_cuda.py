@@ -940,6 +940,54 @@ def test_icp_step_makes_no_host_sync(cuda):
     assert pairsum.LAUNCHES["icp_tail"] == 1
 
 
+def test_host_syncs_count_every_wait_of_a_rescan(cuda, tmp_path,
+                                                 monkeypatch):
+    """One rescan of the small sequence on the card (the prior reloaded
+    from its .rsdb, after ``driver.run_sequence`` builds the kernels and warms
+    every shape) under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronising calls PyTorch warns of are the stages' ``host_syncs``,
+    so every wait of the host on the card is spanned (utils/timing.py)."""
+    import contextlib
+    import io
+    import os
+    import warnings
+    from rescan_tpu_torch import sequences
+    from rescan_tpu_torch.pipeline import (driver, pose_proposal,
+                                           segment_transfer)
+    dev = torch.device("cuda", 0)
+    class_file = sequences.write_small_sequence(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    seq = sequences.SEQ_NAME
+    waits = []
+
+    def show(message, *_):
+        # not set_sync_debug_mode's own notice, which names the mode
+        if "called a synchronizing CUDA operation" in str(message):
+            waits.append(message)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        driver.run_sequence(seq, class_file, devices=[dev])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                db = pose_proposal.run(
+                    os.path.join(seq, "scan_000.rsdb"),
+                    os.path.join(seq, "gt_segmentation", "scan_001.ply"),
+                    os.path.join(seq, "again_pp.rsdb"), devices=[dev])
+                db = segment_transfer.run(
+                    os.path.join(seq, "again_pp.rsdb"),
+                    os.path.join(seq, "again.rsdb"), db=db, devices=[dev])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    counted = (db.last_pose_proposal_timings["host_syncs"]
+               + db.last_segment_transfer_timings["host_syncs"])
+    assert counted > 0
+    assert len(waits) == counted
+
+
 # ---------------------------------------------------------------------------
 # the grid and dense engines (ops/hashgrid.py, ops/dense_nn.py)
 # ---------------------------------------------------------------------------
