@@ -7,11 +7,12 @@ result lines:
 
 1. probe   — torch/CUDA versions, nvcc, the card's name and power limit;
              refuses to run without CUDA;
-2. build   — the native host library and the three CUDA libraries (gated
+2. build   — the native host library and the four CUDA libraries (gated
              NN; per-pair sums, fma chains, the 6x6 solve, XLA's f32 math,
              scoring's per-point terms and the ICP step's head and tail;
-             the grid and dense search engines), from this checkout's
-             sources, the four compilers started together; ptxas's report
+             the grid and dense search engines; the LoD levels' pass),
+             from this checkout's sources, the five compilers started
+             together; ptxas's report
              and, per gated-NN instantiation and ICP head form, its
              residency (CTAs per SM by the occupancy calculator,
              registers, shared and local bytes); fails unless ptxas gives
@@ -48,7 +49,10 @@ result lines:
              (scoring's two transforms at 4,194,304 points) and the score
              terms (at the bench K1 scoring launch) against their plain
              versions and torch.addcmul; the XLA-math kernel's operations
-             on 1,048,576 arguments against their plain versions;
+             on 1,048,576 arguments against their plain versions; the LoD
+             levels' card pass on the bench scan at the four voxels,
+             index for index against the native pass, both timed, with
+             its rounds and byte bound;
 4. parity  — the port's driver over the small 2-scan sequence, held to
              the JAX package's committed outputs
              (tests/data/torch_port_small_ref.npz, its run on the CPU's
@@ -59,7 +63,9 @@ result lines:
 5. slice   — the port's driver over bench.py's 2-scan scene (seg2rsdb,
              pose_proposal, segment_transfer) on the single device
              [cuda:0], with the kernel launch counts reset just before
-             and read just after, held to the JAX package's outputs on
+             and read just after (every level of the rescans built on the
+             card: the native pass may run only in seg2rsdb's bootstrap,
+             which takes no device), held to the JAX package's outputs on
              the same sequence (tests/data/torch_port_bench_slab_ref.npz,
              its run on the sorted slab, at sequences.compare_outputs's
              limits; tests/data/torch_port_bench_ref.npz, its run on the
@@ -180,10 +186,14 @@ SOURCES.update(dict.fromkeys(ENGINE_KERNELS, GRID_SOURCE))
 REPLACES_OF.update({"grid_radius_knn": "rescan_tpu/ops/hashgrid.py:198",
                     "grid_nearest_gated": "rescan_tpu/ops/hashgrid.py:164",
                     "dense_nearest": "rescan_tpu/ops/dense_nn.py:71"})
+# the LoD levels' greedy Poisson-disk pass (no Pallas kernel: the JAX
+# package builds every level on the host with the native pass)
+SOURCES["poisson_levels"] = "rescan_tpu_torch/ops/csrc/levels.cu"
+REPLACES_OF["poisson_levels"] = "rescan_tpu/core/pointcloud.py:183"
 # the kernels every rescan on the main path launches
 PATH_KERNELS = (("gated_min", "nearest_gated")
                 + tuple(k for k in PORT_KERNELS if k not in INSIDE_TAIL)
-                + ("grid_radius_knn",))
+                + ("grid_radius_knn", "poisson_levels"))
 # the kernels whose ptxas report must show no stack frame and no spills
 # (every instantiation): every value in registers; per library
 REGISTER_RESIDENT = ("icp_head_kernel", "icp_tail_kernel", "lu6_kernel")
@@ -329,20 +339,20 @@ def _timed(fn):
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
     from rescan_tpu_torch.core import native
-    from rescan_tpu_torch.ops import gnn, hashgrid, pairsum
+    from rescan_tpu_torch.ops import gnn, hashgrid, levels, pairsum
     # one compiler per source, all started together
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(5) as ex:
         jobs = [ex.submit(_timed, f) for f in (
             native._load, gnn.load_library, pairsum.load_library,
-            hashgrid.load_library)]
-        (lib, t_native), (_, t_gnn), (_, t_sum), (_, t_grid) = (
-            j.result() for j in jobs)
+            hashgrid.load_library, levels.load_library)]
+        (lib, t_native), (_, t_gnn), (_, t_sum), (_, t_grid), \
+            (_, t_levels) = (j.result() for j in jobs)
     say("build", f"native host lib {os.path.relpath(lib._name, HERE)} "
         f"{t_native:.2f}s, CUDA gnn kernel {t_gnn:.2f}s, CUDA pairsum "
-        f"kernel {t_sum:.2f}s, CUDA grid and dense kernels {t_grid:.2f}s "
-        f"(built side by side)")
-    for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG
-                 + hashgrid.BUILD_LOG).splitlines():
+        f"kernel {t_sum:.2f}s, CUDA grid and dense kernels {t_grid:.2f}s, "
+        f"CUDA LoD level kernels {t_levels:.2f}s (built side by side)")
+    for line in (gnn.BUILD_LOG + pairsum.BUILD_LOG + hashgrid.BUILD_LOG
+                 + levels.BUILD_LOG).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", "ptxas " + line.strip())
     for log, kernel in ([(pairsum.BUILD_LOG, k) for k in REGISTER_RESIDENT]
@@ -575,7 +585,75 @@ def phase_kernels(cuda, bench_root) -> dict:
     rows["fma"] = _fma_row(cuda)
     rows["score_terms"] = _score_terms_row(cuda, launches["K1 scoring"])
     _xla_math_rows(cuda)
+    rows["poisson_levels"] = _levels_row(cuda, bench_root)
+    err["poisson_levels"] = 0.0
     return {"err": err, "rows": rows}
+
+
+def _levels_row(cuda, root) -> dict:
+    """The LoD levels' card pass (ops/levels.py) on the bench scan's
+    level 0 at the four voxels, as a rescan's ingest builds them: index for
+    index against the native pass, then card, plain, plain, card timed in
+    this call. A card call waits on the card (the points' box, the
+    worklists' lengths, the indices' copy back), so no spin can hide the
+    host's work: it is timed by CUDA events around whole calls, which is
+    what a rescan pays; the native pass by the host clock. The bound: the
+    positions read once (12 B a point) and the kept indices written once
+    (4 B each) at HBM3's rate."""
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.core.pointcloud import PointCloud
+    from rescan_tpu_torch.ops import levels
+    from rescan_tpu_torch.sequences import SEQ_NAME
+    path = os.path.join(root, SEQ_NAME, "gt_segmentation", "scan_001.ply")
+    pts = PointCloud.from_ply(path, compute_levels=False).pos(0)
+    voxels = config.LEVEL_VOXEL_SIZES[1:]
+    reps = 5
+
+    def kern():
+        return levels.poisson_levels(pts, voxels, cuda)
+
+    def plain():
+        return levels.poisson_levels(pts, voxels, None)
+
+    _reset_counts()
+    got = kern()
+    rounds = list(levels.ROUNDS)
+    want, t0 = _timed(plain)
+    bad = [v for v, g, w in zip(voxels, got, want)
+           if not np.array_equal(g, w)]
+    if bad:
+        raise SystemExit(f"[kernels] FAIL poisson_levels: the card's "
+                         f"indices differ from the native pass's at voxels "
+                         f"{bad}")
+    t_k = [cuda_ms(kern, reps)]
+    t_p = [t0 * 1e3, _timed(plain)[1] * 1e3]
+    t_k.append(cuda_ms(kern, reps))
+    launches, plain_calls = _counts()
+    calls = 1 + 2 * (reps + 1)
+    if (launches["poisson_levels"] != calls
+            or plain_calls["poisson_levels"] != 2 * len(voxels)):
+        raise SystemExit(f"[kernels] FAIL poisson_levels: {calls} card and "
+                         f"2 native pyramids made {launches['poisson_levels']}"
+                         f" card calls and {plain_calls['poisson_levels']} "
+                         f"native passes")
+    kept = [len(g) for g in got]
+    n_bytes = 12 * len(pts) + 4 * sum(kept)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms = min(t_k)
+    row = {"ms": ms, "ms_runs": t_k, "timing": "CUDA events around whole "
+           "calls, each ending in its copy of the indices to the host",
+           "plain_ms": min(t_p), "plain_ms_runs": t_p,
+           "plain_timing": "host clock around one call",
+           "bound_ms": bound, "bound_by": "bytes",
+           "share_of_bound": bound / ms, "points": len(pts), "kept": kept,
+           "rounds": rounds, "voxels": list(voxels)}
+    say("kernels", f"poisson_levels on the bench scan ({len(pts)} points, "
+        f"voxels {list(voxels)}): kept {kept} in rounds {rounds}, index for "
+        f"index the native pass's; card {ms:.3f} ms a pyramid (runs "
+        f"{[round(t, 3) for t in t_k]}), native {min(t_p):.1f} ms; bound "
+        f"{bound:.5f} ms (bytes), card at {bound / ms:.5f} of it")
+    print(json.dumps({"bench_launch": {"poisson_levels": row}}), flush=True)
+    return row
 
 
 def _events_ms(fn):
@@ -999,25 +1077,63 @@ def _run_driver(root: str, class_file: str, devices, profiles=None) -> None:
     log = io.StringIO()
     os.chdir(root)
     try:
-        with contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log), _host_stages():
             driver.run_sequence(SEQ_NAME, class_file, profiles=profiles,
                                 devices=devices)
     finally:
         os.chdir(cwd)
 
 
+# the native level passes of the two stages that take no device, as the
+# JAX package's host modules they copy: seg2rsdb's bootstrap (the first
+# scan's pyramid) and create_eval_files' level-1 ingest. Counted apart
+# (_host_stages), so that the plain calls of _counts are the rescans'
+HOST_STAGE_LEVELS = {"poisson_levels": 0}
+
+
+@contextlib.contextmanager
+def _host_stages():
+    """Count the native level passes made inside seg2rsdb.run and
+    create_eval_files.run in HOST_STAGE_LEVELS."""
+    from rescan_tpu_torch.ops import levels
+    from rescan_tpu_torch.pipeline import create_eval_files, seg2rsdb
+    real = {m: m.run for m in (seg2rsdb, create_eval_files)}
+
+    def counted(fn):
+        def run(*a, **k):
+            n0 = levels.PLAIN_CALLS["poisson_levels"]
+            try:
+                return fn(*a, **k)
+            finally:
+                HOST_STAGE_LEVELS["poisson_levels"] += (
+                    levels.PLAIN_CALLS["poisson_levels"] - n0)
+        return run
+
+    for m, fn in real.items():
+        m.run = counted(fn)
+    try:
+        yield
+    finally:
+        for m, fn in real.items():
+            m.run = fn
+
+
 def _counts():
-    """(launches, plain calls) of every kernel wrapper."""
-    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, pairsum
-    mods = (gnn, pairsum, hashgrid, dense_nn)
-    return ({k: v for m in mods for k, v in m.LAUNCHES.items()},
-            {k: v for m in mods for k, v in m.PLAIN_CALLS.items()})
+    """(launches, plain calls) of every kernel wrapper; the levels' plain
+    calls without those of the stages that take no device
+    (HOST_STAGE_LEVELS)."""
+    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, levels, pairsum
+    mods = (gnn, pairsum, hashgrid, dense_nn, levels)
+    plain = {k: v for m in mods for k, v in m.PLAIN_CALLS.items()}
+    plain["poisson_levels"] -= HOST_STAGE_LEVELS["poisson_levels"]
+    return {k: v for m in mods for k, v in m.LAUNCHES.items()}, plain
 
 
 def _reset_counts() -> None:
-    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, pairsum
-    for m in (gnn, pairsum, hashgrid, dense_nn):
+    from rescan_tpu_torch.ops import dense_nn, gnn, hashgrid, levels, pairsum
+    for m in (gnn, pairsum, hashgrid, dense_nn, levels):
         m.reset_counts()
+    HOST_STAGE_LEVELS["poisson_levels"] = 0
 
 
 def _counted(phase: str, what: str, fn, need=PATH_KERNELS, none=()):
@@ -1549,7 +1665,9 @@ def phase_slice(cuda, root: str, class_file: str):
         if not len(out[k]):
             raise SystemExit(f"[slice] FAIL: empty {k}")
     say("slice", f"bench sequence in {wall:.1f}s: kernel launches "
-        f"{launches}, plain calls {plain}; proposals per object "
+        f"{launches}, plain calls {plain} (native level passes of seg2rsdb"
+        f"'s bootstrap, which takes no device: "
+        f"{HOST_STAGE_LEVELS['poisson_levels']}); proposals per object "
         f"{counts.tolist()}; {len(out['class_ids'])} level-1 points "
         f"labelled; the fma family (fma chains, XLA math, score terms) "
         f"{launches['fma'] + launches['xla_math'] + launches['score_terms']}"
@@ -1965,7 +2083,7 @@ def _run_eval_driver(root: str, class_file: str, devices, profiles=None):
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), _host_stages():
             driver.run_sequence(SEQ_NAME, class_file, profiles=profiles,
                                 devices=devices,
                                 eval_folder=os.path.join(root, EVAL_DIR))
@@ -2288,9 +2406,14 @@ def main() -> int:
         if name == "grid_radius_knn":
             out.update(hostgrid_ms=row["hostgrid_ms"],
                        label_smooth_split_s=row["label_smooth_split_s"])
+        if name == "poisson_levels":
+            # a pyramid a call: phase 3's bench scan; launches: phase 5's
+            # card pyramids
+            out.update({k: row[k] for k in (
+                "plain_timing", "points", "kept", "rounds", "voxels")})
         return out
     kernels = [entry(name) for name in ("gated_min", "nearest_gated")
-               + PORT_KERNELS + ENGINE_KERNELS]
+               + PORT_KERNELS + ENGINE_KERNELS + ("poisson_levels",)]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ capabilities of the reference's ``rs_pointcloud_t``
   byte-exact while all hot compute runs on fixed-shape device arrays.
 * Levels 1..4 are greedy Poisson-disk subsamples of level 0 at voxel sizes
   {0.01, 0.02, 0.04, 0.08} (reference: rs_pointcloud.h:145, :985-1106),
-  computed by the native helper (core/native.py).
+  computed on the card where the call carries a CUDA device (ops/levels.py)
+  and by the native helper (core/native.py) otherwise, index for index the
+  same.
 * Mesh inputs are resampled to a uniform surfel soup at 6400 samples/m^2
   with the reference's area-weighted triangle sampling and exact PRNG
   (rs_pointcloud.h:1133-1227).
@@ -26,6 +28,7 @@ import numpy as np
 
 from .. import config
 from ..io import ply as plyio
+from ..ops import levels as card_levels
 from ..utils import timing
 from . import native
 
@@ -97,18 +100,20 @@ class PointCloud:
     @classmethod
     def from_arrays(cls, level0: Level, faces: Optional[np.ndarray] = None,
                     compute_levels: bool = True,
-                    defer_levels_from: Optional[int] = None) -> "PointCloud":
+                    defer_levels_from: Optional[int] = None,
+                    device=None) -> "PointCloud":
         lvl0 = {k: np.ascontiguousarray(level0[k]) for k in _FIELDS}
         pc = cls(levels=_LazyLevels([lvl0] + [None] * (config.N_LEVELS - 1)),
                  faces=faces)
         if compute_levels:
-            pc.compute_levels(defer_from=defer_levels_from)
+            pc.compute_levels(defer_from=defer_levels_from, device=device)
         return pc
 
     @classmethod
     def from_ply(cls, path: str, compute_levels: bool = True,
                  verbose: bool = False,
-                 defer_levels_from: Optional[int] = None) -> "PointCloud":
+                 defer_levels_from: Optional[int] = None,
+                 device=None) -> "PointCloud":
         """Load + (if mesh) resample + build LoDs
         (rs_pointcloud_from_files, rs_pointcloud.h:1247-1291)."""
         cloud = plyio.load_surfel_ply(path)
@@ -119,7 +124,8 @@ class PointCloud:
         else:
             faces = None
         pc = cls.from_arrays(cloud, faces=faces, compute_levels=compute_levels,
-                             defer_levels_from=defer_levels_from)
+                             defer_levels_from=defer_levels_from,
+                             device=device)
         return pc
 
     # ------------------------------------------------------------------
@@ -167,37 +173,52 @@ class PointCloud:
     # Level pyramid
     # ------------------------------------------------------------------
 
-    def compute_levels(self, defer_from: Optional[int] = None) -> None:
+    def compute_levels(self, defer_from: Optional[int] = None,
+                       device=None) -> None:
         """Rebuild levels 1..4 by Poisson-disk subsampling level 0
         (rs_pointcloud_compute_levels, rs_pointcloud.h:1305-1316).
 
-        ``defer_from``: levels >= this are built on a background thread
-        (joined transparently on first access — _LazyLevels). Each level
-        subsamples level 0 independently, so the deferred results are
-        bit-identical to the eager ones. The main thread's part is the
-        stage's ``levels`` span (utils/timing.py)."""
+        ``device``: a CUDA device builds every level there at once
+        (ops/levels.py); None or the CPU takes the native pass, level by
+        level. Both give the same indices.
+        ``defer_from`` (host path only): levels >= this are built on a
+        background thread (joined transparently on first access —
+        _LazyLevels). Each level subsamples level 0 independently, so the
+        deferred results are bit-identical to the eager ones. The main
+        thread's part is the stage's ``levels`` span (utils/timing.py)."""
         with timing.span("levels"):
-            self._compute_levels(defer_from)
+            self._compute_levels(defer_from, device)
 
-    def _compute_levels(self, defer_from: Optional[int]) -> None:
+    def _compute_levels(self, defer_from: Optional[int], device) -> None:
         if isinstance(self.levels, _LazyLevels):
             self.levels.join()
         self._invalidate()
         lvl0 = list.__getitem__(self.levels, 0) \
             if isinstance(self.levels, _LazyLevels) else self.levels[0]
 
-        def build(lvl: int) -> None:
-            idx = native.poisson_subsample(lvl0["positions"],
-                                           config.LEVEL_VOXEL_SIZES[lvl])
-            lv = {k: np.ascontiguousarray(lvl0[k][idx]) for k in _FIELDS}
+        def build(lvl: int, idx: np.ndarray) -> None:
+            # np.take copies a row at a time, several times faster than
+            # fancy indexing on the (N, 3) fields
+            lv = {k: np.take(lvl0[k], idx, axis=0) for k in _FIELDS}
             list.__setitem__(self.levels, lvl, lv) \
                 if isinstance(self.levels, _LazyLevels) else \
                 self.levels.__setitem__(lvl, lv)
 
+        if card_levels.on_card(device):
+            idx = card_levels.poisson_levels(
+                lvl0["positions"], config.LEVEL_VOXEL_SIZES[1:], device)
+            for lvl, ix in enumerate(idx, 1):
+                build(lvl, ix)
+            return
+
+        def build_native(lvl: int) -> None:
+            build(lvl, card_levels.poisson_subsample(
+                lvl0["positions"], config.LEVEL_VOXEL_SIZES[lvl]))
+
         stop = config.N_LEVELS if defer_from is None \
             else max(min(defer_from, config.N_LEVELS), 1)
         for lvl in range(1, stop):
-            build(lvl)
+            build_native(lvl)
         if stop < config.N_LEVELS:
             if not isinstance(self.levels, _LazyLevels):
                 self.levels = _LazyLevels(self.levels)
@@ -223,7 +244,7 @@ class PointCloud:
                 except (AttributeError, OSError):
                     pass
                 for lvl in range(stop, config.N_LEVELS):
-                    build(lvl)
+                    build_native(lvl)
 
             self.levels.future = ex.submit(build_rest)
             ex.shutdown(wait=False)
@@ -232,10 +253,11 @@ class PointCloud:
     # Copy / extract / merge / transform (rs_pointcloud.h:174-446,1354-1378)
     # ------------------------------------------------------------------
 
-    def copy(self) -> "PointCloud":
+    def copy(self, device=None) -> "PointCloud":
         return PointCloud.from_arrays(
             {k: self.levels[0][k].copy() for k in _FIELDS},
-            faces=None if self.faces is None else self.faces.copy())
+            faces=None if self.faces is None else self.faces.copy(),
+            device=device)
 
     def extract_by_ids(self, lvl: int, field: str, ids: Sequence[int],
                        compute_levels: bool = False) -> Optional["PointCloud"]:
@@ -249,16 +271,18 @@ class PointCloud:
         sub = {k: np.ascontiguousarray(self.levels[lvl][k][mask]) for k in _FIELDS}
         return PointCloud.from_arrays(sub, compute_levels=compute_levels)
 
-    def merge_with(self, other: "PointCloud", lvl: int = 0) -> "PointCloud":
+    def merge_with(self, other: "PointCloud", lvl: int = 0,
+                   device=None) -> "PointCloud":
         """Concatenate two clouds at ``lvl`` into a new level 0 with the
         reference's deterministic Fisher-Yates shuffle (seed 12346,
-        rs_pointcloud_merge, rs_pointcloud.h:383-446), then rebuild levels."""
+        rs_pointcloud_merge, rs_pointcloud.h:383-446), then rebuild levels
+        (on ``device``, as ``compute_levels``)."""
         merged = {k: np.concatenate([self.levels[lvl][k], other.levels[lvl][k]])
                   for k in _FIELDS}
         n = len(merged["positions"])
         perm = native.merge_shuffle(n, config.MERGE_SHUFFLE_SEED)
         merged = {k: np.ascontiguousarray(v[perm]) for k, v in merged.items()}
-        return PointCloud.from_arrays(merged)
+        return PointCloud.from_arrays(merged, device=device)
 
     def transform(self, mat4: np.ndarray, compute_levels: bool = False) -> None:
         """Rigid transform of level 0 (positions as points, normals as

@@ -31,7 +31,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -425,7 +425,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _lib = None
 _lib_lock = threading.Lock()
 # ptxas's report (registers, shared memory, spills per instantiation) of
-# the build this process ran; empty when the library was already built
+# the library in use (kept beside it as ``libgnn-<hash>.so.ptxas.txt``)
 BUILD_LOG = ""
 
 
@@ -440,29 +440,44 @@ def find_nvcc() -> str:
                        "the CUDA kernel cannot be built")
 
 
+def build_library(name: str, sources: Sequence[str]) -> tuple:
+    """Build ``sources[0]`` with nvcc and NVCC_FLAGS into
+    ``_build/lib<name>-<hash>.so`` (once per set of sources, the headers it
+    includes listed after it, and flags: the hash covers them all) and load
+    it: (the CDLL, ptxas's -v report, kept beside the library as
+    ``<lib>.ptxas.txt``). Raises with the compiler's stderr on failure."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(_BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    log = f"{out}.ptxas.txt"
+    if not os.path.exists(out):
+        nvcc = find_nvcc()
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, sources[0]],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        with open(log, "w") as f:
+            f.write(r.stderr)
+        os.replace(tmp, out)
+    report = ""
+    if os.path.exists(log):
+        with open(log) as f:
+            report = f.read()
+    return ctypes.CDLL(out), report
+
+
 def load_library():
-    """Build ``csrc/gnn.cu`` into ``_build/`` (once per source and flag
-    set) and load it. Raises with the compiler's stderr on failure."""
+    """Build ``csrc/gnn.cu`` (``build_library``) and load it."""
     global _lib, BUILD_LOG
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                               ).hexdigest()[:12]
-        out = os.path.join(_BUILD_DIR, f"libgnn-{tag}.so")
-        if not os.path.exists(out):
-            nvcc = find_nvcc()
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"gnn: nvcc failed ({r.returncode}):\n"
-                                   f"{r.stderr}")
-            os.replace(tmp, out)
-            BUILD_LOG = r.stderr
-        _lib = bind(ctypes.CDLL(out))
+        if _lib is None:
+            lib, BUILD_LOG = build_library("gnn", [_SRC])
+            _lib = bind(lib)
         return _lib
 
 

@@ -33,9 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import subprocess
 import threading
 from typing import Optional, Tuple
 
@@ -335,34 +333,12 @@ BUILD_LOG = ""
 
 
 def load_library():
-    """Build ``csrc/hashgrid.cu`` (the grid and the dense kernels) into
-    ``_build/`` (once per source and flag set) and load it. Raises with
-    the compiler's stderr on failure."""
+    """Build ``csrc/hashgrid.cu`` (the grid and the dense kernels) (``gnn.build_library``) and load it."""
     global _lib, BUILD_LOG
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(gnn.NVCC_FLAGS).encode()
-                               ).hexdigest()[:12]
-        out = os.path.join(gnn._BUILD_DIR, f"libhashgrid-{tag}.so")
-        log = f"{out}.ptxas.txt"
-        if not os.path.exists(out):
-            nvcc = gnn.find_nvcc()
-            os.makedirs(gnn._BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            r = subprocess.run([nvcc, *gnn.NVCC_FLAGS, "-o", tmp, _SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"hashgrid: nvcc failed ({r.returncode}):"
-                                   f"\n{r.stderr}")
-            with open(log, "w") as f:
-                f.write(r.stderr)
-            os.replace(tmp, out)
-        if os.path.exists(log):
-            with open(log) as f:
-                BUILD_LOG = f.read()
-        _lib = bind(ctypes.CDLL(out))
+        if _lib is None:
+            lib, BUILD_LOG = gnn.build_library("hashgrid", [_SRC])
+            _lib = bind(lib)
         return _lib
 
 

@@ -91,9 +91,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
 import threading
 from typing import Optional
 
@@ -575,11 +573,10 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SRC = os.path.join(_CSRC, "pairsum.cu")
 # what the library is built from: the source and the header it includes
 _SOURCES = (_SRC, os.path.join(_CSRC, "xla_math.cuh"))
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 _lib = None
 _lib_lock = threading.Lock()
+# ptxas's -v report of the library in use (kept beside it as
+# ``libpairsum-<hash>.so.ptxas.txt``)
 BUILD_LOG = ""
 
 # pairsum_kernel's two shapes (csrc/pairsum.cu BigSum, SmallSum): points
@@ -595,36 +592,12 @@ def _shape(k: int, q: int) -> str:
 
 
 def load_library():
-    """Build ``csrc/pairsum.cu`` into ``_build/`` (once per source and
-    flag set) and load it. Raises with the compiler's stderr on
-    failure."""
+    """Build ``csrc/pairsum.cu`` (``gnn.build_library``) and load it."""
     global _lib, BUILD_LOG
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for src in _SOURCES:
-            with open(src, "rb") as f:
-                h.update(f.read())
-        out = os.path.join(gnn._BUILD_DIR, f"libpairsum-{h.hexdigest()[:12]}.so")
-        # ptxas's -v report, kept beside the library it describes
-        log = f"{out}.ptxas.txt"
-        if not os.path.exists(out):
-            nvcc = gnn.find_nvcc()
-            os.makedirs(gnn._BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"pairsum: nvcc failed ({r.returncode}):"
-                                   f"\n{r.stderr}")
-            with open(log, "w") as f:
-                f.write(r.stderr)
-            os.replace(tmp, out)
-        if os.path.exists(log):
-            with open(log) as f:
-                BUILD_LOG = f.read()
-        _lib = bind(ctypes.CDLL(out))
+        if _lib is None:
+            lib, BUILD_LOG = gnn.build_library("pairsum", _SOURCES)
+            _lib = bind(lib)
         return _lib
 
 

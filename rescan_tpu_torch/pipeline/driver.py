@@ -87,10 +87,11 @@ def run_sequence(seq_dir: str, class_file: str,
             for s in db.scenes:
                 s.cloud = None
             # seg2rsdb writes object clouds without LoD levels; compute
-            # them as a reload of the written level-0 points would
+            # them as a reload of the written level-0 points would, on the
+            # lead device as the stages do
             for o in db.objects:
                 if o.cloud is not None and o.cloud.levels[1] is None:
-                    o.cloud.compute_levels()
+                    o.cloud.compute_levels(device=devs[0])
         else:
             db = None
     produced.append(prev_rsdb)

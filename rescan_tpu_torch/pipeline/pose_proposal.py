@@ -418,7 +418,7 @@ def _run(rsdb_filename, scene_filename, output_filename, verbose,
     with timing.span("io_load"):
         if db is None:
             db = database.load_database(rsdb_filename, load_pointclouds=True,
-                                        verbose=verbose)
+                                        verbose=verbose, device=dev)
     db.model_folder = paths.model_folder_name(output_filename)
     if verbose:
         print(f"IO:   N. Objects:      {len(db.objects)}")
@@ -449,9 +449,11 @@ def _propose(db, scene_filename, output_filename, verbose, dev, mesh):
     """Scene ingest through the final sort; returns each object's sorted
     (poses, scores) and the new scene."""
     with timing.span("ingest") as ingest:
-        # levels 3-4 are unused by this stage; they fill in on a
-        # background thread while the scene index is built
-        scn_cloud = PointCloud.from_ply(scene_filename, defer_levels_from=3)
+        # levels 3-4 are unused by this stage: on the host they fill in on
+        # a background thread while the scene index is built; on a card
+        # the whole pyramid is built at once
+        scn_cloud = PointCloud.from_ply(scene_filename, defer_levels_from=3,
+                                        device=dev)
         scene = rsdbio.RsScene(
             uidx=len(db.scenes), arrangement_idx=len(db.scenes),
             scn_filename=scene_filename,

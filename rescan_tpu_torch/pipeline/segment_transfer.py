@@ -178,7 +178,7 @@ def augment_database(db: rsdbio.Rsdb, scene_idx: int,
             new_obj = rsdbio.RsObject(
                 uidx=plc.uidx,
                 filename=f"{db.class_name(obj.class_idx)}.{plc.uidx:03d}.ply",
-                class_idx=obj.class_idx, cloud=obj.cloud.copy())
+                class_idx=obj.class_idx, cloud=obj.cloud.copy(device=dev))
             plc.object_idx = db.add_object(new_obj)
             obj = db.objects[plc.object_idx]
             print(f"DATABASE_AUGMENT:  --- Novel object {new_obj.filename}!")
@@ -206,7 +206,7 @@ def augment_database(db: rsdbio.Rsdb, scene_idx: int,
             extracted.transform(xform, compute_levels=False)
             extracted.levels[0]["instance_ids"][:] = 0
             obj.cloud.levels[0]["instance_ids"][:] = 1
-            merged = extracted.merge_with(obj.cloud, lvl=0)
+            merged = extracted.merge_with(obj.cloud, lvl=0, device=dev)
             for lvl in range(config.N_LEVELS):
                 merged.levels[lvl]["instance_ids"][:] = plc.uidx
             obj.cloud = merged
@@ -258,7 +258,7 @@ def _transfer(input_db, opts, verbose, db, dev, mesh):
     with timing.span("io_load"):
         if db is None:
             db = database.load_database(input_db, load_pointclouds=True,
-                                        verbose=verbose)
+                                        verbose=verbose, device=dev)
 
     # load per-scene pose proposals (main.cpp:290-297); in-memory dbs
     # already carry the latest scene's proposals
@@ -302,7 +302,7 @@ def _transfer(input_db, opts, verbose, db, dev, mesh):
             with timing.span("sa_saliency"):
                 compute_scene_saliency(db, time_idx)
             with timing.span("sa_levels"):
-                scene.compute_levels()
+                scene.compute_levels(device=dev)
             with timing.span("sa_context"):
                 opts.n_past_steps = min(len(db.arrangements) - 1,
                                         opts.n_past_steps)

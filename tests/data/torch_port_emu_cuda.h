@@ -1,8 +1,9 @@
 // Host emulation of the CUDA subset that rescan_tpu_torch/ops/csrc/gnn.cu,
-// pairsum.cu (with xla_math.cuh) and hashgrid.cu use, so that their kernel
+// pairsum.cu (with xla_math.cuh), hashgrid.cu and levels.cu use, so that their kernel
 // logic can be built with g++ and run on the CPU
 // (tests/test_torch_gnn_emulated.py, tests/test_torch_pairsum.py,
-// tests/test_torch_hashgrid.py, tests/test_torch_dense_nn.py). In emulate_launch a block is one warp: 32
+// tests/test_torch_hashgrid.py, tests/test_torch_dense_nn.py,
+// tests/test_torch_levels.py). In emulate_launch a block is one warp: 32
 // std::threads that meet at a barrier for every warp collective; in
 // emulate_block_launch a block of 32 threads is the same, and a larger
 // block (no warp collective) is one fiber a thread on the calling thread,
@@ -101,6 +102,9 @@ inline unsigned __float_as_uint(float f) {
   return v;
 }
 inline int __float_as_int(float f) { return static_cast<int>(__float_as_uint(f)); }
+inline float __int_as_float(int v) { return __uint_as_float(static_cast<unsigned>(v)); }
+// the old value, as on the card
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(unsigned v) { return __builtin_ffs(v); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }

@@ -1096,3 +1096,131 @@ def test_smoothing_graph_on_card_matches_cpu(cuda):
     e_cpu, w_cpu = labels.build_smoothing_graph(scene, device="cpu")
     np.testing.assert_array_equal(e_card, e_cpu)
     np.testing.assert_array_equal(w_card.view(np.int32), w_cpu.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the LoD levels (ops/levels.py, ops/csrc/levels.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bench_scans(tmp_path_factory):
+    """bench.py's two scans (resolution 16) and their class file."""
+    import os
+    from rescan_tpu_torch import sequences
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = str(tmp_path_factory.mktemp("bench_levels"))
+    class_file = sequences.write_bench_sequence(root)
+    gt = os.path.join(root, sequences.SEQ_NAME, "gt_segmentation")
+    return [os.path.join(gt, f"scan_{i:03d}.ply") for i in (0, 1)], class_file
+
+
+def _same_levels(got, want):
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.core import pointcloud
+    for lvl in range(config.N_LEVELS):
+        for k in pointcloud._FIELDS:
+            np.testing.assert_array_equal(got.levels[lvl][k],
+                                          want.levels[lvl][k],
+                                          err_msg=f"level {lvl} {k}")
+
+
+def test_levels_on_card_equal_the_native_pass(cuda, bench_scans):
+    """The bench scan's pyramid, and an object merged as ``aug_merge``
+    merges one (the scan's extraction moved, merged into the object's
+    cloud), built on the card equal the native pass's, every field of
+    every level."""
+    from rescan_tpu_torch.core import pointcloud
+    from rescan_tpu_torch.ops import levels
+    PointCloud = pointcloud.PointCloud
+    scans, _ = bench_scans
+    levels.reset_counts()
+    card = PointCloud.from_ply(scans[1], defer_levels_from=3, device=cuda)
+    assert levels.LAUNCHES["poisson_levels"] == 1
+    assert levels.PLAIN_CALLS["poisson_levels"] == 0
+    assert 1 <= max(levels.ROUNDS) <= 10, levels.ROUNDS
+    host = PointCloud.from_ply(scans[1])
+    _same_levels(card, host)
+    ids, n = np.unique(host.levels[1]["instance_ids"], return_counts=True)
+    uid = int(ids[ids > 0][np.argmax(n[ids > 0])])
+    model = PointCloud.from_ply(scans[0]).extract_by_ids(
+        0, "instance_ids", [uid], compute_levels=True)
+    seen = host.extract_by_ids(1, "instance_ids", [uid])
+    xform = np.eye(4, dtype=np.float32)
+    xform[:3, 3] = [0.02, -0.01, 0.0]
+    seen.transform(xform)
+    _same_levels(seen.merge_with(model, device=cuda), seen.merge_with(model))
+    assert levels.LAUNCHES["poisson_levels"] == 2
+
+
+@pytest.fixture(scope="module")
+def bench_rescan(bench_scans, tmp_path_factory):
+    """The bench rescan on cuda:0 as the benchmark runs it (the prior
+    reloaded from its .rsdb), after a warm-up rescan: the levels'
+    counters over it, each ``compute_levels`` call's seconds, and both
+    stages' timings."""
+    import contextlib
+    import io
+    import os
+    import time
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rescan_tpu_torch.core import pointcloud
+    from rescan_tpu_torch.ops import levels
+    from rescan_tpu_torch.pipeline import (pose_proposal, seg2rsdb,
+                                           segment_transfer)
+    from rescan_tpu_torch.utils import timing
+    dev = torch.device("cuda", 0)
+    (scan0, scan1), class_file = bench_scans
+    out = str(tmp_path_factory.mktemp("bench_rescan"))
+    prior = os.path.join(out, "prior.rsdb")
+
+    def rescan(name):
+        pp = os.path.join(out, name + "_pp.rsdb")
+        db = pose_proposal.run(prior, scan1, pp, devices=[dev])
+        return segment_transfer.run(pp, os.path.join(out, name + ".rsdb"),
+                                    db=db, devices=[dev])
+
+    calls = []
+    compute = pointcloud.PointCloud.compute_levels
+
+    def timed(self, *a, **k):
+        in_stage = timing._OPEN.get() is not None
+        t0 = time.perf_counter()
+        try:
+            return compute(self, *a, **k)
+        finally:
+            calls.append((time.perf_counter() - t0, in_stage))
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        seg2rsdb.run(scan0, class_file, prior)
+        rescan("warm")
+        torch.cuda.synchronize()
+        levels.reset_counts()
+        pointcloud.PointCloud.compute_levels = timed
+        try:
+            db = rescan("again")
+        finally:
+            pointcloud.PointCloud.compute_levels = compute
+    return {"launches": levels.LAUNCHES["poisson_levels"],
+            "plain": levels.PLAIN_CALLS["poisson_levels"], "calls": calls,
+            "timings": (db.last_pose_proposal_timings,
+                        db.last_segment_transfer_timings)}
+
+
+def test_bench_rescan_builds_every_level_on_card(cuda, bench_rescan):
+    """Every pyramid of a bench rescan on the card is built there: the
+    native pass runs zero times."""
+    assert bench_rescan["plain"] == 0
+    assert bench_rescan["launches"] == len(bench_rescan["calls"]) > 0
+
+
+def test_levels_span_covers_every_call_site(cuda, bench_rescan):
+    """Every ``compute_levels`` call of the rescan runs inside a stage, and
+    the stages' ``levels`` spans sum to the calls' seconds, less only the
+    spans' own entry and exit."""
+    calls = bench_rescan["calls"]
+    assert all(in_stage for _, in_stage in calls)
+    spanned = sum(t.get("levels", 0.0) for t in bench_rescan["timings"])
+    called = sum(sec for sec, _ in calls)
+    assert 0.95 * called <= spanned <= called
