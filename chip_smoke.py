@@ -26,7 +26,13 @@ result lines:
              is no multiple of the 128-query block, a block of real and
              far queries) and two bench launches built as the pipeline
              builds them (the K1 scoring launch, the K2 ICP launch);
-             bit-identical idx/d2/dot required. For each bench launch:
+             bit-identical idx/d2/dot required. The studio cell's scan
+             (scanbench's studio-6x6-10obj), whose level-1 index is split
+             into a SlabSet: K1 over the set on its largest scoring launch
+             bit for bit against the plain version over the same parts,
+             timed beside one slab of the same points, with both pair
+             counts, then a launch of each other class of the studio's
+             objects timed alike. For each bench launch:
              kernel and plain times, the pairs the kernel evaluates (the
              host count of its run pruning) and the pairs within r, and
              the bound. The grid kernels (radius_knn at K 8 and 16,
@@ -444,7 +450,6 @@ def _bench_queries(cuda, root):
     from rescan_tpu_torch.core.pointcloud import PointCloud
     from rescan_tpu_torch.utils import synthetic
     from rescan_tpu_torch.ops import icp, score, search
-    from rescan_tpu_torch.pipeline import pose_proposal
     from rescan_tpu_torch.sequences import SEQ_NAME
 
     gt = os.path.join(root, SEQ_NAME, "gt_segmentation")
@@ -454,29 +459,7 @@ def _bench_queries(cuda, root):
     planar = {synthetic.NYU40_CLASSES.index(c) for c in ("wall", "floor")}
     uids = np.unique(L0["instance_ids"][~np.isin(L0["class_ids"],
                                                  list(planar))])
-    obj = base.extract_by_ids(0, "instance_ids", [int(uids[0])],
-                              compute_levels=True)
-    c = obj.centroid(0).copy()
-    c[1] = 0.0
-    T = np.eye(4, dtype=np.float32)
-    T[:3, 3] = -c
-    obj.transform(T)
-
-    slab1 = search.build_index(scene.pos(1), config.SCORE_SEARCH_RADII[1],
-                               normals=scene.nrm(1), device=cuda)
-    occ = pose_proposal.SceneOccupancy(scene.pos(1), 0.1,
-                                       scene_nrm=scene.nrm(1))
-    hyps, _, _ = score.grid_search_hypotheses(scene.bbox[0], scene.bbox[1])
-    alive = np.where(occ.score_upper_bound(obj.pos(4), hyps,
-                                           obj_nrm=obj.nrm(4)) >= 0.25)[0]
-    P, N, _ = score.prep_points(obj.pos(4), obj.nrm(4))
-    h = score.MAX_QUERIES_PER_LAUNCH // len(P)
-    H = torch.from_numpy(hyps[np.resize(alive, h)]).to(cuda)
-    Pt, Nt = torch.from_numpy(P).to(cuda), torch.from_numpy(N).to(cuda)
-    sq = (torch.einsum("hij,pj->hpi", H[:, :3, :3], Pt)
-          + H[:, None, :3, 3]).reshape(-1, 3).contiguous()
-    sqn = torch.einsum("hij,pj->hpi", H[:, :3, :3], Nt).reshape(-1, 3) \
-        .contiguous()
+    slab1, sq, sqn, obj, c = _scoring_launch(cuda, scene, base, int(uids[0]))
 
     slab2 = search.build_index(scene.pos(2), config.REFINE_ICP_MAX_DIST,
                                normals=scene.nrm(2), tile=1024, device=cuda)
@@ -505,6 +488,174 @@ def _bench_queries(cuda, root):
         "K1 scoring": (scene.pos(1), scene.nrm(1),
                        config.SCORE_SEARCH_RADII[1]),
         "K2 ICP": (scene.pos(2), scene.nrm(2), config.REFINE_ICP_MAX_DIST)}
+
+
+def _scoring_launch(cuda, scene, base, uid: int, built=None):
+    """The K1 scoring launch the pipeline makes for the object ``uid`` of
+    ``base`` (centred on its centroid at floor height, as the prior holds
+    it) over ``scene``: (the scene's level-1 index, as ``build_index``
+    gives it, the launch's MAX_QUERIES_PER_LAUNCH queries and normals,
+    the object, its centre). The queries are the object's level-4 points
+    under the hypotheses that pass the occupancy bound, taken in turn.
+    ``built``: a dict that keeps the index and the occupancy grid of
+    ``scene`` from one call to the next."""
+    from rescan_tpu_torch import config
+    from rescan_tpu_torch.ops import score, search
+    from rescan_tpu_torch.pipeline import pose_proposal
+    obj = base.extract_by_ids(0, "instance_ids", [uid], compute_levels=True)
+    c = obj.centroid(0).copy()
+    c[1] = 0.0
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = -c
+    obj.transform(T)
+
+    built = {} if built is None else built
+    if "index" not in built:
+        built["index"] = search.build_index(
+            scene.pos(1), config.SCORE_SEARCH_RADII[1],
+            normals=scene.nrm(1), device=cuda)
+        built["occ"] = pose_proposal.SceneOccupancy(
+            scene.pos(1), 0.1, scene_nrm=scene.nrm(1))
+    index, occ = built["index"], built["occ"]
+    hyps, _, _ = score.grid_search_hypotheses(scene.bbox[0], scene.bbox[1])
+    alive = np.where(occ.score_upper_bound(obj.pos(4), hyps,
+                                           obj_nrm=obj.nrm(4)) >= 0.25)[0]
+    P, N, _ = score.prep_points(obj.pos(4), obj.nrm(4))
+    h = score.MAX_QUERIES_PER_LAUNCH // len(P)
+    H = torch.from_numpy(hyps[np.resize(alive, h)]).to(cuda)
+    Pt, Nt = torch.from_numpy(P).to(cuda), torch.from_numpy(N).to(cuda)
+    sq = (torch.einsum("hij,pj->hpi", H[:, :3, :3], Pt)
+          + H[:, None, :3, 3]).reshape(-1, 3).contiguous()
+    sqn = torch.einsum("hij,pj->hpi", H[:, :3, :3], Nt).reshape(-1, 3) \
+        .contiguous()
+    return index, sq, sqn, obj, c
+
+
+def _studio_set_row(cuda, work: str) -> dict:
+    """The split index at the size the main path gives it: the studio
+    cell's first scan (scanbench's studio-6x6-10obj, levels built on the
+    card), whose level 1 is past ``MAX_SLAB_COLS * 0.94`` points, so
+    ``build_index`` makes a SlabSet, and its largest scoring launch (the
+    bed's, MAX_QUERIES_PER_LAUNCH queries). K1 over the set on the card
+    (a launch a part, merged on the card) against the plain version over
+    the same parts merged by a strict '<' on d2 in part order, bit for
+    bit; the pairs each part's pruning evaluates, beside those of one
+    slab of the same points (no split: every d2 about the whole scan's
+    centre, as the port built it before the split); the set's and the one
+    slab's kernel times in turns (set, slab, slab, set); and how many
+    queries one slab answers otherwise (found or not, d2 bits). Then a
+    full launch of one object of each other class, set against one slab:
+    times in turns and the pairs each evaluates."""
+    from rescan_tpu_torch.core.pointcloud import PointCloud
+    from rescan_tpu_torch.ops import gnn, score
+    from scanbench import scenes
+    with open(os.path.join(HERE, "scanbench", "configs",
+                           "studio-6x6-10obj.json")) as f:
+        cfg = json.load(f)
+    room = scenes.room_of(cfg)
+    path = os.path.join(work, "studio.ply")
+    scenes.write_ply(path, scenes.scene_mesh(room, cfg["mesh_resolution"]))
+    scene = PointCloud.from_ply(path, device=cuda)
+    bed = scenes.FIRST_OBJECT_ID + [b.cls for b in room.objects].index("bed")
+    built = {}
+    sset, sq, sqn, _, _ = _scoring_launch(cuda, scene, scene, bed, built)
+    if not isinstance(sset, gnn.SlabSet) or len(sset.slabs) < 2:
+        raise SystemExit("[kernels] FAIL studio set: the studio's level-1 "
+                         "index is no SlabSet of 2 or more parts")
+    args = (sq, sqn, 0.1, score.SCORE_COS_GATE, False)
+    parts = len(sset.slabs)
+
+    def plain():
+        d2 = dot = None
+        for part in sset.slabs:
+            d, t = gnn.gated_min_ref(part, *args)
+            if d2 is None:
+                d2, dot = d, t
+                continue
+            better = d < d2
+            dot = torch.where(better, t, dot)
+            d2 = torch.minimum(d2, d)
+        return d2, dot
+
+    def kern():
+        return gnn.gated_min(sset, *args)
+
+    n1 = _launched("gated_min")
+    got = kern()
+    if _launched("gated_min") - n1 != parts:
+        raise SystemExit(f"[kernels] FAIL studio set: a search of {parts} "
+                         f"parts made {_launched('gated_min') - n1} launches")
+    want = plain()
+    _, e = _compare("K1 studio set", got, want)
+    pos = scene.pos(1)
+    one = gnn.build_sorted_slab(pos, scene.nrm(1), device=cuda,
+                                orig_index=np.arange(len(pos)))
+
+    def kern_one():
+        return gnn.gated_min(one, *args)
+
+    single = kern_one()
+    found_off = int((torch.isfinite(single[0])
+                     != torch.isfinite(got[0])).sum())
+    bits_off = int((single[0].view(torch.int32)
+                    != got[0].view(torch.int32)).sum())
+    reps = 3
+    t_set = [queued_ms(kern, reps)[0]]
+    t_one = [kernel_ms(kern_one, "gated_min", reps)]
+    t_one.append(kernel_ms(kern_one, "gated_min", reps))
+    t_set.append(queued_ms(kern, reps)[0])
+    per_part = [gnn.pair_counts(part, *args) for part in sset.slabs]
+    c_one = gnn.pair_counts(one, *args)
+    c_set = {k: sum(c[k] for c in per_part) for k in per_part[0]}
+    row = {"queries": int(sq.shape[0]), "points": len(pos),
+           "parts": [s.n_valid for s in sset.slabs],
+           "tiles": [s.tile_bounds.shape[0] for s in sset.slabs],
+           "one_slab_tiles": one.tile_bounds.shape[0],
+           "ms": min(t_set), "ms_runs": t_set, "one_slab_ms": min(t_one),
+           "one_slab_ms_runs": t_one, "timing": TIMING,
+           "found": int(torch.isfinite(want[0]).sum()),
+           "one_slab_found_off": found_off, "one_slab_d2_bits_off": bits_off,
+           "max_abs_err": e, "pairs": c_set, "per_part_pairs": per_part,
+           "one_slab_pairs": c_one}
+    say("kernels", f"studio set: {row['queries']} queries (the bed's "
+        f"scoring launch) on {len(pos)} level-1 points in {parts} parts "
+        f"{row['parts']} (tiles {row['tiles']}, one slab "
+        f"{row['one_slab_tiles']}), {row['found']} found, 0 mismatches "
+        f"against the plain version over the parts; set {min(t_set):.4f} "
+        f"ms (runs {[round(t, 4) for t in t_set]}), one slab "
+        f"{min(t_one):.4f} ms (runs {[round(t, 4) for t in t_one]}); "
+        f"pairs evaluated {c_set['run_pairs']} (parts "
+        f"{[c['run_pairs'] for c in per_part]}; one slab "
+        f"{c_one['run_pairs']}), whole near tiles {c_set['tile_pairs']} "
+        f"(one slab {c_one['tile_pairs']}), within r {c_set['in_radius']} "
+        f"(one slab {c_one['in_radius']}); one slab answers {found_off} "
+        f"queries otherwise in found, {bits_off} in d2's bits")
+    row["classes"] = {"bed": {"ms": row["ms"],
+                              "one_slab_ms": row["one_slab_ms"],
+                              "run_pairs": c_set["run_pairs"],
+                              "one_slab_run_pairs": c_one["run_pairs"]}}
+    classes = [b.cls for b in room.objects]
+    for cls in dict.fromkeys(classes):
+        if cls == "bed":
+            continue
+        uid = scenes.FIRST_OBJECT_ID + classes.index(cls)
+        _, q, qn, _, _ = _scoring_launch(cuda, scene, scene, uid, built)
+        a = (q, qn) + args[2:]
+        t_s = [queued_ms(lambda: gnn.gated_min(sset, *a), reps)[0]]
+        t_o = [kernel_ms(lambda: gnn.gated_min(one, *a), "gated_min", reps)]
+        t_o.append(kernel_ms(lambda: gnn.gated_min(one, *a), "gated_min",
+                             reps))
+        t_s.append(queued_ms(lambda: gnn.gated_min(sset, *a), reps)[0])
+        rp = sum(gnn.pair_counts(part, *a)["run_pairs"]
+                 for part in sset.slabs)
+        rp_one = gnn.pair_counts(one, *a)["run_pairs"]
+        row["classes"][cls] = {"ms": min(t_s), "one_slab_ms": min(t_o),
+                               "run_pairs": rp, "one_slab_run_pairs": rp_one}
+        say("kernels", f"studio set, the {cls}'s launch ({q.shape[0]} "
+            f"queries): set {min(t_s):.4f} ms, one slab {min(t_o):.4f} ms; "
+            f"pairs evaluated {rp}, one slab {rp_one}")
+    print(json.dumps({"bench_launch": {"K1 studio set": row}}), flush=True)
+    return row
 
 
 def _bound(kind, n_points, m, pairs_in_r, flop_per_pair=FLOP_PER_PAIR):
@@ -567,6 +718,7 @@ def phase_kernels(cuda, bench_root) -> dict:
         for k, row in er.items():
             err[k] = max(err[k], row["max_abs_err"])
     _residency(cuda, launches["K1 scoring"])
+    _studio_set_row(cuda, bench_root)
     first = {"gated_min": "K1 scoring", "nearest_gated": "K2 ICP"}
     rows = {k: rows[v] for k, v in first.items()}
     # the engines' largest launch: scoring's

@@ -20,6 +20,11 @@ reference's bits are the fused ones), and the same tie rule. Inside near
 tiles both prune with the slab's run table (``SortedSlab.run_bounds``,
 the bounds of every RUN-column run), which drops only columns that
 cannot pass d2 < r^2.
+
+An index of more than ``MAX_SLAB_COLS * 0.94`` points is split as the
+JAX package splits it (pallas_nn.py:313-323): a ``SlabSet`` of
+Morton-contiguous parts, each a slab about its own centre, searched part
+by part and merged with a strict ``<`` on d2 (ties to the earlier part).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,8 +58,12 @@ RUN = 32
 
 # Kernel launches per wrapper, and calls of the plain versions. Callers
 # that need to show which path ran reset them with ``reset_counts``.
-LAUNCHES = {"gated_min": 0, "nearest_gated": 0}
-PLAIN_CALLS = {"gated_min": 0, "nearest_gated": 0}
+# The ``*_set`` keys count searches of a SlabSet (its parts' own
+# launches or plain calls count under the plain keys).
+LAUNCHES = {"gated_min": 0, "nearest_gated": 0, "gated_min_set": 0,
+            "nearest_gated_set": 0}
+PLAIN_CALLS = {"gated_min": 0, "nearest_gated": 0, "gated_min_set": 0,
+               "nearest_gated_set": 0}
 # shard slots call the wrappers from several threads (parallel/mesh.py)
 _count_lock = threading.Lock()
 
@@ -121,6 +130,30 @@ class SortedSlab:
                       "run_bounds")})
 
 
+@dataclasses.dataclass
+class SlabSet:
+    """An index of more than ``MAX_SLAB_COLS * 0.94`` points as
+    Morton-contiguous parts (pallas_nn.py:274-296): every point is in
+    one part, and each part's ``perm`` holds original indices, so a
+    search of every part merged by d2 answers as one index would."""
+    slabs: List[SortedSlab]
+    n_total: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.slabs[0].device
+
+    def to(self, device) -> "SlabSet":
+        """This set with every part on ``device``."""
+        return SlabSet([s.to(device) for s in self.slabs], self.n_total)
+
+
+# columns per part before an index is split (pallas_nn.py:301): the JAX
+# package's VMEM limit, kept so that the parts' centres, and so every d2
+# bit, stay the reference's past it
+MAX_SLAB_COLS = 393216
+
+
 def run_bounds_of(slab: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """(N_pad / RUN, 8) min xyz (0:3) and max xyz (4:7) of the valid
     columns of every RUN-column run; FAR for runs of padding."""
@@ -159,22 +192,42 @@ def slab_from_numpy(slab, tile_bounds, perm, n_valid, center, tile: int,
 
 def build_sorted_slab(points: np.ndarray, normals: np.ndarray,
                       cell: float = 0.4, tile: int = SCENE_TILE,
-                      device=None) -> SortedSlab:
+                      device=None, orig_index=None
+                      ) -> Union[SortedSlab, SlabSet]:
     """Morton-sort the points about their bbox centre and cut them into
     tiles of ``tile`` columns, starting a new tile at every coarse-octant
     boundary so no tile straddles a Morton jump (pallas_nn.py:304-395,
-    without the VMEM split and the tile-count buckets). Padding columns
-    sit at FAR. ``device`` as in ``slab_from_numpy``."""
+    without the tile-count buckets). Padding columns sit at FAR.
+    ``device`` as in ``slab_from_numpy``; ``orig_index``, a part's
+    original indices (its ``perm`` maps to them).
+
+    More than ``MAX_SLAB_COLS * 0.94`` points make a ``SlabSet``: one
+    stable Morton sort of all points, cut into ``k`` contiguous runs at
+    ``np.linspace``'s bounds, each built as a slab of its own. The stage
+    trace gets the seconds in ``slab_split`` and the parts in
+    ``slab_parts``."""
     pts = np.asarray(points, np.float32)
     nrm = np.asarray(normals, np.float32)
     n = len(pts)
+    if orig_index is None and n > int(MAX_SLAB_COLS * 0.94):
+        with timing.span("slab_split"):
+            glob = np.argsort(morton_key(pts, cell), kind="stable")
+            k = int(np.ceil(n / (MAX_SLAB_COLS * 0.94)))
+            bounds = np.linspace(0, n, k + 1).astype(np.int64)
+            parts = [build_sorted_slab(pts[glob[a:b]], nrm[glob[a:b]],
+                                       cell=cell, tile=tile, device=device,
+                                       orig_index=glob[a:b].astype(np.int32))
+                     for a, b in zip(bounds[:-1], bounds[1:])]
+        timing.add("slab_parts", k)
+        return SlabSet(parts, n)
     center = ((pts.min(0) + pts.max(0)) * 0.5 if n
               else np.zeros(3)).astype(np.float32)
     p = pts - center
     order = np.argsort(morton_key(p, cell), kind="stable")
     p = p[order]
     nr = nrm[order]
-    oidx = order.astype(np.int32)
+    oidx = (order.astype(np.int32) if orig_index is None
+            else np.asarray(orig_index, np.int32)[order])
 
     max_side = 6.0
     segments = []
@@ -593,9 +646,13 @@ def _check_device(q_pos: torch.Tensor) -> bool:
     raise ValueError(f"gnn: unsupported device {q_pos.device}")
 
 
-def nearest_gated(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
-                  radius, cos_gate, use_abs_dot: bool = False):
+def nearest_gated(slab: Union[SortedSlab, SlabSet], q_pos: torch.Tensor,
+                  q_nrm: torch.Tensor, radius, cos_gate,
+                  use_abs_dot: bool = False):
     """K2: (idx int32 in original point order or -1, d2, dot)."""
+    if isinstance(slab, SlabSet):
+        return _search_set(slab, q_pos, q_nrm, radius, cos_gate,
+                           use_abs_dot, want_idx=True)
     if _check_device(q_pos):
         return _launch(slab, q_pos, q_nrm, radius, cos_gate, use_abs_dot,
                        want_idx=True)
@@ -603,12 +660,47 @@ def nearest_gated(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
                              use_abs_dot)
 
 
-def gated_min(slab: SortedSlab, q_pos: torch.Tensor, q_nrm: torch.Tensor,
-              radius, cos_gate, use_abs_dot: bool = False):
+def gated_min(slab: Union[SortedSlab, SlabSet], q_pos: torch.Tensor,
+              q_nrm: torch.Tensor, radius, cos_gate,
+              use_abs_dot: bool = False):
     """K1: (d2, dot) of the nearest qualifying point; d2 = +inf where
     none qualifies."""
+    if isinstance(slab, SlabSet):
+        return _search_set(slab, q_pos, q_nrm, radius, cos_gate,
+                           use_abs_dot, want_idx=False)[1:]
     if _check_device(q_pos):
         _, d2, dot = _launch(slab, q_pos, q_nrm, radius, cos_gate,
                              use_abs_dot, want_idx=False)
         return d2, dot
     return gated_min_ref(slab, q_pos, q_nrm, radius, cos_gate, use_abs_dot)
+
+
+def _search_set(sset: SlabSet, q_pos, q_nrm, radius, cos_gate,
+                use_abs_dot: bool, want_idx: bool):
+    """K2 (``want_idx``) or K1 over a SlabSet, as ``nearest_gated_set`` and
+    ``gated_min_set`` (pallas_nn.py:507-538): every part searched in turn
+    (a launch each on a card, the plain version on the CPU), merged with
+    a strict ``<`` on d2 in part order; ``idx`` None for K1. The stage
+    trace gets the merges' seconds in ``set_merge`` and, for K1, in
+    ``gated_min_set_requeries``, the query rows searched beyond one
+    search of the whole index."""
+    kind = "nearest_gated" if want_idx else "gated_min"
+    _count(LAUNCHES if _check_device(q_pos) else PLAIN_CALLS, kind + "_set")
+    if not want_idx:
+        timing.add("gated_min_set_requeries",
+                   int(q_pos.shape[0]) * (len(sset.slabs) - 1))
+    search = nearest_gated if want_idx else gated_min
+    idx = d2 = dot = None
+    for part in sset.slabs:
+        out = search(part, q_pos, q_nrm, radius, cos_gate, use_abs_dot)
+        i, d, t = out if want_idx else (None, *out)
+        if d2 is None:
+            idx, d2, dot = i, d, t
+            continue
+        with timing.span("set_merge"):
+            better = d < d2
+            if want_idx:
+                idx = torch.where(better, i, idx)
+            dot = torch.where(better, t, dot)
+            d2 = torch.minimum(d2, d)
+    return idx, d2, dot

@@ -205,7 +205,7 @@ class Mesh:
 
 
 def _to_device(obj, dev: torch.device):
-    if isinstance(obj, (gnn.SortedSlab, hashgrid.HashGrid,
+    if isinstance(obj, (gnn.SortedSlab, gnn.SlabSet, hashgrid.HashGrid,
                         dense_nn.DenseIndex)):
         return obj.to(dev)
     return torch.as_tensor(obj).to(dev)

@@ -115,8 +115,10 @@ def test_kernel_bit_identical_to_plain(cuda, tile, radius, cos_gate,
                                       use_abs_dot)
     d1_k, t1_k = gnn.gated_min(slab, qt, qnt, radius, cos_gate, use_abs_dot)
     torch.cuda.synchronize()
-    assert gnn.LAUNCHES == {"gated_min": 1, "nearest_gated": 1}
-    assert gnn.PLAIN_CALLS == {"gated_min": 0, "nearest_gated": 0}
+    assert gnn.LAUNCHES == {"gated_min": 1, "nearest_gated": 1,
+                            "gated_min_set": 0, "nearest_gated_set": 0}
+    assert gnn.PLAIN_CALLS == {"gated_min": 0, "nearest_gated": 0,
+                               "gated_min_set": 0, "nearest_gated_set": 0}
     i_p, d_p, t_p = gnn.nearest_gated_ref(slab, qt, qnt, radius, cos_gate,
                                           use_abs_dot)
     assert (i_p >= 0).sum() > 1000
@@ -142,6 +144,35 @@ def test_kernel_empty_and_ragged(cuda):
     idx, d2, _ = gnn.nearest_gated(empty, torch.from_numpy(q).to(cuda),
                                    torch.from_numpy(qn).to(cuda), 0.2, 0.0)
     assert (idx == -1).all() and torch.isinf(d2).all()
+
+
+@pytest.mark.parametrize("use_abs_dot,cos_gate", [(False, 0.5),
+                                                  (True, -1.0)])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_set_kernel_bit_identical_to_plain(cuda, monkeypatch, parts,
+                                           use_abs_dot, cos_gate):
+    """K2 and K1 over a split index on the card (a launch a part, merged
+    on the card) equal the plain version over the same parts."""
+    pts, nrm, q, qn = _fixture(9, 30000, 20000)
+    monkeypatch.setattr(gnn, "MAX_SLAB_COLS",
+                        int(np.ceil(len(pts) / (0.94 * (parts - 0.5)))))
+    sset = gnn.build_sorted_slab(pts, nrm, tile=2048, device=cuda)
+    assert isinstance(sset, gnn.SlabSet) and len(sset.slabs) == parts
+    qt, qnt = torch.from_numpy(q).to(cuda), torch.from_numpy(qn).to(cuda)
+    gnn.reset_counts()
+    card = gnn.nearest_gated(sset, qt, qnt, 0.1, cos_gate, use_abs_dot)
+    card1 = gnn.gated_min(sset, qt, qnt, 0.1, cos_gate, use_abs_dot)
+    torch.cuda.synchronize()
+    assert gnn.LAUNCHES == {"gated_min": parts, "nearest_gated": parts,
+                            "gated_min_set": 1, "nearest_gated_set": 1}
+    plain = gnn.nearest_gated(sset.to("cpu"), qt.cpu(), qnt.cpu(), 0.1,
+                              cos_gate, use_abs_dot)
+    assert gnn.PLAIN_CALLS["nearest_gated_set"] == 1
+    assert (plain[0] >= 0).sum() > 1000
+    for a, b in zip(card, plain):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    for a, b in zip(card1, plain[1:]):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 def _mesh_devices(cuda, n):
@@ -1151,6 +1182,36 @@ def test_levels_on_card_equal_the_native_pass(cuda, bench_scans):
     seen.transform(xform)
     _same_levels(seen.merge_with(model, device=cuda), seen.merge_with(model))
     assert levels.LAUNCHES["poisson_levels"] == 2
+
+
+def test_studio_levels_on_card_equal_the_native_pass(cuda, tmp_path):
+    """The studio cell's first scan (scanbench's studio-6x6-10obj, ~1.75M
+    points, the largest pyramid the card builds): the card's levels equal
+    the native pass's at all four voxels, and level 1 is past the index's
+    split limit."""
+    import json
+    import os
+    from rescan_tpu_torch.core import pointcloud
+    from rescan_tpu_torch.ops import levels
+    from scanbench import scenes
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "scanbench", "configs",
+                           "studio-6x6-10obj.json")) as f:
+        cfg = json.load(f)
+    path = str(tmp_path / "studio.ply")
+    scenes.write_ply(path, scenes.scene_mesh(scenes.room_of(cfg),
+                                             cfg["mesh_resolution"]))
+    levels.reset_counts()
+    card = pointcloud.PointCloud.from_ply(path, defer_levels_from=3,
+                                          device=cuda)
+    assert levels.LAUNCHES["poisson_levels"] == 1
+    assert levels.PLAIN_CALLS["poisson_levels"] == 0
+    host = pointcloud.PointCloud.from_ply(path)
+    _same_levels(card, host)
+    counts = [len(card.levels[lvl]["positions"]) for lvl in range(5)]
+    print("studio levels", counts, "rounds", levels.ROUNDS)
+    assert counts[0] > 1_700_000
+    assert counts[1] > int(gnn.MAX_SLAB_COLS * 0.94)
 
 
 @pytest.fixture(scope="module")

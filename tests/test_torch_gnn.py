@@ -82,8 +82,10 @@ def test_plain_bit_identical_to_pallas(tile, radius, cos_gate, use_abs_dot):
                                       use_abs_dot)
     td2m, tdotm = gnn.gated_min(slab, qt, qnt, radius, cos_gate, use_abs_dot)
     # CPU tensors take the plain version and launch nothing
-    assert gnn.PLAIN_CALLS == {"gated_min": 1, "nearest_gated": 1}
-    assert gnn.LAUNCHES == {"gated_min": 0, "nearest_gated": 0}
+    assert gnn.PLAIN_CALLS == {"gated_min": 1, "nearest_gated": 1,
+                               "gated_min_set": 0, "nearest_gated_set": 0}
+    assert gnn.LAUNCHES == {"gated_min": 0, "nearest_gated": 0,
+                            "gated_min_set": 0, "nearest_gated_set": 0}
     assert (np.asarray(ji) >= 0).sum() > 50
     _same_bits(ji, ti.numpy())
     _same_bits(jd2, td2.numpy())
